@@ -1,0 +1,421 @@
+"""Drive the PyTorch port on one NVIDIA card and check it.
+
+    python3 chip_smoke.py [--profile DIR]
+
+Phases, in order (any failure raises, and the script exits non-zero):
+  1. card: name, nvidia-smi name and power limit; TF32 off for f32 checks;
+  2. build: every CUDA kernel of the port, from its sources, with nvcc;
+  3. kernels vs plain: `msda_forward` against `ms_deform_attn_plain` on the
+     card at the encoder shape (Q = S = 20197 at 800x1216), the decoder shape
+     (Q = 900) and a ragged shape (D = 16, B = 2, odd levels, locations in
+     [-0.1, 1.1]), f32 and bf16 value, with timings (CUDA events, median);
+  4. whole model, card vs CPU: a reduced-depth f32 model (tiny Swin/BERT,
+     2 + 2 layers) with the same seeded weights on both;
+  5. main path: `dualzerorepbranchgroundingdino` at full width (Swin-T,
+     BERT-base, 6 + 6 layers, 900 queries, bf16) answers `predict` requests
+     on a synthetic 800x1216 image; every request must launch the MSDA
+     kernel 12 times (6 encoder + 6 decoder layers); with --profile, where
+     the time of those requests goes (`phase_profile`);
+  6. result: a `kernels` JSON line, the nvidia-smi line, and last
+     `{"ok": true, "device": {...}}`.
+
+It needs a CUDA card and the repository's `ziragroundingdino_torch` package
+next to it; without either it fails before printing a result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+ENC_SHAPES = ((100, 152), (50, 76), (25, 38), (13, 19))  # levels at 800x1216
+ENC_S = sum(h * w for h, w in ENC_SHAPES)  # 20197
+RAGGED_SHAPES = ((7, 9), (5, 3), (2, 11), (1, 1))
+F32_TOL = 1e-5  # times max(1, max |plain|): f32 summation order over L*P*4 terms
+BF16_REL_TOL = 1e-2  # bf16 kernel vs plain in f32 on the same bf16 inputs
+MODEL_TOL = 1e-3  # card vs CPU, f32 reduced-depth model (GEMM/conv order)
+
+
+def tpu_kernel_file() -> str:
+    """Path, in this checkout, of the TPU kernel that `msda_forward` replaces
+    (the JAX package's `ops/msda_pallas.py`; `pallas_call` at line 72)."""
+    root = pathlib.Path(__file__).resolve().parent
+    found = sorted(root.glob("*/ops/msda_pallas.py"))
+    if len(found) != 1:
+        raise FileNotFoundError(f"expected one */ops/msda_pallas.py under {root}, got {found}")
+    return found[0].relative_to(root).as_posix()
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def nvidia_smi_line() -> str:
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return res.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, n: int = 20, warmup: int = 3) -> float:
+    """Median device time of `fn` over n runs, each between two CUDA events."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def msda_inputs(shapes, b, q, h, d, dtype, lo=0.0, hi=1.0, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    s = sum(hh * ww for hh, ww in shapes)
+    n_levels, n_points = len(shapes), 4
+    value = torch.randn(b, s, h, d, device="cuda", generator=g).to(dtype)
+    loc = lo + (hi - lo) * torch.rand(b, q, h, n_levels, n_points, 2, device="cuda", generator=g)
+    attn = torch.softmax(torch.randn(b, q, h, n_levels * n_points, device="cuda", generator=g),
+                         -1).reshape(b, q, h, n_levels, n_points)
+    return value, loc, attn
+
+
+def msda_bound(value, loc, attn, out):
+    """Least time for the call: every input read once and the output written
+    once at the memory rate, or its arithmetic at the f32 rate (2 flops per
+    channel per corner sample, plus ~20 per sample for the corner weights)."""
+    nbytes = sum(t.numel() * t.element_size() for t in (value, loc, attn, out))
+    b, q, h, n_levels, n_points, _ = loc.shape
+    d = value.shape[-1]
+    samples = b * q * h * n_levels * n_points
+    flops = samples * (4 * 2 * d + 20)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes
+
+
+def phase_kernels(msda_forward, ms_deform_attn_plain):
+    """Kernel vs plain at the main path's shapes; returns the encoder bf16
+    measurement for the kernels line."""
+    cases = [
+        ("encoder", ENC_SHAPES, 1, ENC_S, 8, 32, 0.0, 1.0),
+        ("decoder", ENC_SHAPES, 1, 900, 8, 32, 0.0, 1.0),
+        ("ragged", RAGGED_SHAPES, 2, 37, 3, 16, -0.1, 1.1),
+    ]
+    record = None
+    for name, shapes, b, q, h, d, lo, hi in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            value, loc, attn = msda_inputs(shapes, b, q, h, d, dtype, lo, hi)
+            out = msda_forward(value, shapes, loc, attn)
+            want = ms_deform_attn_plain(value.float(), shapes, loc, attn)
+            torch.cuda.synchronize()
+            err = (out.float() - want).abs().max().item()
+            scale = max(1.0, want.abs().max().item())
+            rel = err / scale
+            tol = F32_TOL * scale if dtype == torch.float32 else BF16_REL_TOL * scale
+            ms = time_ms(lambda: msda_forward(value, shapes, loc, attn))
+            plain_ms = time_ms(lambda: ms_deform_attn_plain(value, shapes, loc, attn))
+            bound_ms, bound_by, nbytes = msda_bound(value, loc, attn, out)
+            log(f"msda_forward {name} {str(dtype)[6:]} B={b} Q={q} H={h} D={d} "
+                f"max_abs_err={err:.3e} rel_err={rel:.3e} tol={tol:.3e} "
+                f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+                f"({bound_by}, {nbytes / 1e6:.1f} MB)")
+            if not err <= tol:
+                raise AssertionError(f"msda_forward disagrees with the plain version at "
+                                     f"{name} {dtype}: {err} > {tol}")
+            if name == "encoder" and dtype == torch.bfloat16:
+                record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                              bound_by=bound_by)
+    return record
+
+
+def tiny_model_kwargs(pc):
+    """The tiny Swin/BERT of the repository's tests, 2 + 2 layers, f32."""
+    swin = pc.SwinConfig(embed_dim=8, depths=(1, 1, 1, 1), num_heads=(1, 2, 4, 8),
+                         window_size=4, drop_path_rate=0.0)
+    bert = pc.BertConfig(vocab_size=128, hidden_size=32, num_hidden_layers=2,
+                         num_attention_heads=2, intermediate_size=64,
+                         max_position_embeddings=64, hidden_dropout=0.0, attention_dropout=0.0)
+    return dict(hidden_dim=64, nheads=4, dim_feedforward=128, enc_layers=2, dec_layers=2,
+                num_queries=12, max_text_len=32, max_categories=8, swin_config=swin,
+                bert_config=bert)
+
+
+def phase_model_card_vs_cpu(pc, build_model, tokenizer_mod):
+    kw = tiny_model_kwargs(pc)
+    cpu = build_model(device="cpu", dtype="float32", seed=1, **kw)
+    # seeded noise on every tensor, so zero-initialized parts (box-head last
+    # layers, ZiRa freeze branches) take part in the comparison
+    g = torch.Generator().manual_seed(2)
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=g))
+    card = build_model(device="cuda", dtype="float32", seed=1, **kw)
+    card.load_state_dict(cpu.state_dict(), strict=True)
+
+    tok = tokenizer_mod.WordPieceTokenizer(tokenizer_mod.make_synthetic_vocab(
+        ["cat", "dog", "zebra", "person", "fish", "car"]))
+    tb = tokenizer_mod.tokenize_captions(tok, ["cat.dog.", "zebra.person.fish."],
+                                         max_text_len=32, max_categories=8,
+                                         text_len_buckets=(16, 32))
+    rng = np.random.RandomState(0)
+    pixels = rng.randn(2, 64, 96, 3).astype(np.float32)
+    mask = np.zeros((2, 64, 96), bool)
+    mask[0] = True
+    mask[1, :51, :76] = True
+    outs = []
+    for model, dev in ((cpu, "cpu"), (card, "cuda")):
+        text = {k: torch.from_numpy(v).to(dev) for k, v in tb.asdict().items()}
+        with torch.inference_mode():
+            outs.append(model(torch.from_numpy(pixels).to(dev), torch.from_numpy(mask).to(dev),
+                              text))
+    ref, got = outs
+    same_idx = torch.equal(ref["topk_idx"], got["topk_idx"].cpu())
+    errs = {k: (got[k].cpu() - ref[k]).abs().max().item() for k in ("pred_logits", "pred_boxes")}
+    log(f"model card vs cpu (tiny f32, 2+2 layers): topk equal={same_idx} "
+        f"pred_logits max_abs_err={errs['pred_logits']:.3e} "
+        f"pred_boxes max_abs_err={errs['pred_boxes']:.3e} tol={MODEL_TOL}")
+    if not same_idx:
+        raise AssertionError("top-k query indices differ between the card and the CPU")
+    for k, e in errs.items():
+        if not e <= MODEL_TOL:
+            raise AssertionError(f"{k} differs between the card and the CPU: {e}")
+
+
+def phase_main_path(build_model, inference, tokenizer_mod, transforms, pc, msda_forward,
+                    card_line):
+    t0 = time.time()
+    model = build_model("dualzerorepbranchgroundingdino", device="cuda", dtype="bfloat16",
+                        seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"main path: built dualzerorepbranchgroundingdino ({n_params / 1e6:.1f} M params, "
+        f"bf16 compute) in {time.time() - t0:.1f} s")
+    words = ["person", "dog", "cat", "car", "bicycle", "traffic", "light", "zebra", "fish",
+             "boat", "bird", "horse", "umbrella", "kite", "bottle", "cup", "the", "a", "left",
+             "red", "on", "of", "man", "riding"]
+    lm = inference.LoadedModel(model=model, tokenizer=tokenizer_mod.WordPieceTokenizer(
+        tokenizer_mod.make_synthetic_vocab(words)))
+    cfg = model.cfg
+    rng = np.random.RandomState(0)
+    image = rng.randint(0, 256, (800, 1199, 3)).astype(np.uint8)
+    data_cfg = pc.DataConfig()
+    bucket = transforms.pick_bucket(800, 1199, data_cfg.shape_buckets)
+    pixels, mask = transforms.pad_to_bucket(transforms.normalize(image, data_cfg), bucket)
+    pixels, mask = pixels[None], mask[None]
+    captions = ["person . dog . cat .", "a man riding a bicycle", "red traffic light . car",
+                "zebra . horse . bird . kite . umbrella"]
+
+    captured = {}
+    hook = model.register_forward_hook(lambda m, a, out: captured.__setitem__("out", out))
+    msda_forward.launches = 0
+    request_ms = []
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for i, caption in enumerate(captions):
+            before = msda_forward.launches
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            boxes, scores, phrases = inference.predict(lm, pixels, mask, caption)
+            torch.cuda.synchronize()
+            request_ms.append((time.perf_counter() - t) * 1e3)
+            out = captured.pop("out")
+            launched = msda_forward.launches - before
+            logits, pboxes = out["pred_logits"], out["pred_boxes"]
+            log(f"request {i}: {caption!r}: {request_ms[-1]:.1f} ms, {len(boxes)} boxes kept, "
+                f"msda_forward launches {launched}, phrases {phrases[:3]}")
+            if tuple(logits.shape) != (1, cfg.num_queries, cfg.max_text_len):
+                raise AssertionError(f"pred_logits shape {tuple(logits.shape)}")
+            if tuple(pboxes.shape) != (1, cfg.num_queries, 4):
+                raise AssertionError(f"pred_boxes shape {tuple(pboxes.shape)}")
+            if not (torch.isfinite(logits).all() and torch.isfinite(pboxes).all()):
+                raise AssertionError("non-finite detections")
+            if not ((pboxes >= 0) & (pboxes <= 1)).all():
+                raise AssertionError("boxes outside [0, 1]")
+            if launched != cfg.enc_layers + cfg.dec_layers:
+                raise AssertionError(f"msda_forward launched {launched} times in one request")
+    finally:
+        hook.remove()
+    launches = msda_forward.launches
+    peak = torch.cuda.max_memory_allocated()
+    log(f"main path: {len(captions)} requests at 800x1216, per-request ms "
+        f"{[round(x, 2) for x in request_ms]} (first includes warm-up), "
+        f"steady median {statistics.median(request_ms[1:]):.2f} ms, "
+        f"peak memory {peak / 2**30:.2f} GiB, on {card_line}")
+    return launches, (model, lm, pixels, mask, captions)
+
+
+def _merged_ms(intervals) -> float:
+    """Length of the union of (start, end) intervals in microseconds, in ms."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total / 1e3
+
+
+def phase_profile(inference, request, out_dir: pathlib.Path, card_line):
+    """Where a request's time goes (only with --profile DIR), after the main
+    path's checks. Two passes over the same captions:
+      * CUDA events from forward hooks give the stream time of BERT, Swin,
+        the encoder, the decoder and the whole forward (the rest of the
+        forward is input projections, query selection and the heads);
+      * torch.profiler (CPU + CUDA) gives every kernel's device time: the
+        device busy time (union of kernel intervals) over the host wall time
+        of the window, and the kernels that take the most time. Its trace
+        goes to DIR/trace.json.gz. The profiler slows the host, so the idle
+        share it shows is an upper bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    model, lm, pixels, mask, captions = request
+    spans = {"forward": model, "bert": model.bert, "swin": model.backbone[0],
+             "encoder": model.transformer.encoder, "decoder": model.transformer.decoder}
+    marks = {name: [] for name in spans}
+
+    def hooks(name):
+        def pre(mod, args):
+            marks[name].append([torch.cuda.Event(enable_timing=True),
+                                torch.cuda.Event(enable_timing=True)])
+            marks[name][-1][0].record()
+
+        def post(mod, args, out):
+            marks[name][-1][1].record()
+        return pre, post
+
+    handles = []
+    for name, mod in spans.items():
+        pre, post = hooks(name)
+        handles += [mod.register_forward_pre_hook(pre), mod.register_forward_hook(post)]
+    wall = []
+    try:
+        for caption in captions:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            inference.predict(lm, pixels, mask, caption)
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t) * 1e3)
+    finally:
+        for h in handles:
+            h.remove()
+    stream = {name: statistics.median(a.elapsed_time(b) for a, b in pairs)
+              for name, pairs in marks.items()}
+    stream["other"] = stream["forward"] - sum(v for k, v in stream.items() if k != "forward")
+    log(f"profile: request wall median {statistics.median(wall):.2f} ms; stream ms (median of "
+        f"{len(captions)}): " + ", ".join(f"{k} {v:.2f}" for k, v in stream.items())
+        + f"; on {card_line}")
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for caption in captions:
+            inference.predict(lm, pixels, mask, caption)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t) * 1e3
+    prof.export_chrome_trace(str(out_dir / "trace.json.gz"))
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    if not kernels:
+        raise AssertionError("the profiler recorded no device activity")
+    busy_ms = _merged_ms((e.time_range.start, e.time_range.end) for e in kernels)
+    by_name = {}
+    for e in kernels:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    log(f"profile: {len(captions)} requests under the profiler: window {window_ms:.2f} ms, "
+        f"device busy {busy_ms:.2f} ms, idle share {1 - busy_ms / window_ms:.3f}, "
+        f"{len(kernels) / len(captions):.0f} device activities per request")
+    for name, (ms, n) in top:
+        log(f"  {ms / len(captions):8.3f} ms/request {n // len(captions):5d}x  {name[:110]}")
+    log("profile: " + json.dumps({
+        "card": card_line, "request_wall_ms": wall, "stream_ms": stream,
+        "profiled_window_ms": window_ms, "device_busy_ms": busy_ms,
+        "top_kernels_ms_per_request": {k: v[0] / len(captions) for k, v in top}}))
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--profile", type=pathlib.Path, default=None, metavar="DIR",
+                        help="also profile requests of the main path; trace to DIR")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    from ziragroundingdino_torch import config as pc
+    from ziragroundingdino_torch.data import transforms
+    from ziragroundingdino_torch.models import build_model
+    from ziragroundingdino_torch.ops import cuda_build
+    from ziragroundingdino_torch.ops.msda import ms_deform_attn_plain
+    from ziragroundingdino_torch.ops.msda_cuda import msda_forward
+    from ziragroundingdino_torch.text import tokenizer as tokenizer_mod
+    from ziragroundingdino_torch.utils import inference
+
+    # 1. card
+    kind = torch.cuda.get_device_name(0)
+    card_line = nvidia_smi_line()
+    log(f"device: {kind}; nvidia-smi: {card_line}; torch {torch.__version__} "
+        f"cuda {torch.version.cuda}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # 2. build
+    t0 = time.time()
+    logs = cuda_build.build_all()
+    log(f"build: {sorted(cuda_build.sources())} in {time.time() - t0:.2f} s")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+
+    # 3. kernels vs plain
+    rec = phase_kernels(msda_forward, ms_deform_attn_plain)
+
+    # 4. whole model, card vs CPU
+    phase_model_card_vs_cpu(pc, build_model, tokenizer_mod)
+
+    # 5. main path at full width
+    launches, request = phase_main_path(build_model, inference, tokenizer_mod, transforms, pc,
+                                        msda_forward, card_line)
+    if args.profile is not None:
+        phase_profile(inference, request, args.profile, card_line)
+
+    # 6. result
+    kernels = [{
+        "name": "msda_forward",
+        "route": "cuda",
+        "source": "ziragroundingdino_torch/csrc/msda_forward.cu",
+        "replaces": f"{tpu_kernel_file()}:72",
+        "launches": launches,
+        "max_abs_err": rec["max_abs_err"],
+        "ms": rec["ms"],
+        "plain_ms": rec["plain_ms"],
+        "bound_ms": rec["bound_ms"],
+        "bound_by": rec["bound_by"],
+        "library_ms": None,
+        "timed_at": "encoder call, bf16 value, B=1 Q=S=20197 H=8 D=32 L=P=4",
+    }]
+    log(json.dumps({"kernels": kernels}))
+    log(card_line)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,19 @@
+"""Where the port runs: the card unless the caller asks for the CPU."""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
+    """`None` means the CUDA card; with no card that raises instead of
+    running on the CPU. Pass `device="cpu"` to run on the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run on the CPU"
+            )
+        return torch.device("cuda")
+    return torch.device(device)
