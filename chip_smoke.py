@@ -4,11 +4,20 @@
 
 Phases, in order (any failure raises, and the script exits non-zero):
   1. card: name, nvidia-smi name and power limit; TF32 off for f32 checks;
-  2. build: every CUDA kernel of the port, from its sources, with nvcc;
+  2. build: every CUDA kernel of the port, from its sources, with nvcc; each
+     kernel's registers, stack frame and spills as ptxas reports them, and
+     a failure if any kernel has a stack frame or spills;
   3. kernels vs plain: `msda_forward` against `ms_deform_attn_plain` on the
      card at the encoder shape (Q = S = 20197 at 800x1216), the decoder shape
-     (Q = 900) and a ragged shape (D = 16, B = 2, odd levels, locations in
-     [-0.1, 1.1]), f32 and bf16 value, with timings (CUDA events, median);
+     (Q = 900), a tail shape (Q = 901: the last block's tile is ragged), an
+     edge shape (B = 2, locations exactly 0, exactly 1 and far outside) and a
+     ragged shape (D = 16, B = 2, odd levels, locations in [-0.1, 1.1]), f32
+     and bf16 value, with timings (CUDA events, median of 20): `ms`, the
+     call time (events around the Python call, so the host's time before
+     the launch counts, as the first slice timed it) and `device_ms` (a
+     spin before the first event hides the host's time, so only the kernel
+     counts); at the encoder shape also the device time with L2 flushed
+     before every launch; the wrapper's host time per call;
   4. whole model, card vs CPU: a reduced-depth f32 model (tiny Swin/BERT,
      2 + 2 layers) with the same seeded weights on both;
   5. main path: `dualzerorepbranchgroundingdino` at full width (Swin-T,
@@ -28,6 +37,7 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -41,6 +51,9 @@ F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 ENC_SHAPES = ((100, 152), (50, 76), (25, 38), (13, 19))  # levels at 800x1216
 ENC_S = sum(h * w for h, w in ENC_SHAPES)  # 20197
 RAGGED_SHAPES = ((7, 9), (5, 3), (2, 11), (1, 1))
+EDGES = (0.0, 1.0, -7.5, 8.25)  # locations of the "edges" case, beside uniform ones
+L2_FLUSH_BYTES = 128 * 2**20  # written between launches for a cold-L2 time (L2: 50 MB)
+SPIN_CYCLES = 1_000_000  # ~0.5 ms at the H100's clock: the host enqueues a timed call meanwhile
 F32_TOL = 1e-5  # times max(1, max |plain|): f32 summation order over L*P*4 terms
 BF16_REL_TOL = 1e-2  # bf16 kernel vs plain in f32 on the same bf16 inputs
 MODEL_TOL = 1e-3  # card vs CPU, f32 reduced-depth model (GEMM/conv order)
@@ -67,12 +80,24 @@ def nvidia_smi_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, n: int = 20, warmup: int = 3) -> float:
-    """Median device time of `fn` over n runs, each between two CUDA events."""
+def time_ms(fn, n: int = 20, warmup: int = 3, flush: torch.Tensor | None = None,
+            spin: bool = False) -> float:
+    """Median time of `fn` over n runs, each between two CUDA events
+    recorded around the call, so the host's time before the launch counts
+    (the call time). With `spin`, the stream is first held by a spin of
+    about 0.5 ms (`torch.cuda._sleep`) while the host enqueues the first
+    event and `fn`, so only the device's time counts for an `fn` whose host
+    work fits in the spin (the device time). With `flush`, that buffer is
+    written before each run, outside the events, so that `fn` finds L2
+    cold."""
     for _ in range(warmup):
         fn()
     times = []
-    for _ in range(n):
+    for i in range(n):
+        if flush is not None:
+            flush.fill_(i & 0xFF)
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -83,12 +108,35 @@ def time_ms(fn, n: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def msda_inputs(shapes, b, q, h, d, dtype, lo=0.0, hi=1.0, seed=0):
+def host_us(fn, n: int = 200) -> float:
+    """Host time per call of `fn`, called n times back to back (a device that
+    keeps up leaves only the host's time)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    elapsed = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return elapsed / n * 1e6
+
+
+def msda_inputs(shapes, b, q, h, d, dtype, span=(0.0, 1.0), seed=0):
+    """Seeded value, loc and attn; loc uniform in span = (lo, hi), or with
+    span = "edges" a fifth each of EDGES' four values, the rest in [0, 1]."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     s = sum(hh * ww for hh, ww in shapes)
     n_levels, n_points = len(shapes), 4
+    size = (b, q, h, n_levels, n_points, 2)
     value = torch.randn(b, s, h, d, device="cuda", generator=g).to(dtype)
-    loc = lo + (hi - lo) * torch.rand(b, q, h, n_levels, n_points, 2, device="cuda", generator=g)
+    loc = torch.rand(size, device="cuda", generator=g)
+    if span == "edges":
+        pick = torch.randint(0, len(EDGES) + 1, size, device="cuda", generator=g)
+        table = torch.tensor(EDGES + (0.0,), device="cuda")
+        loc = torch.where(pick < len(EDGES), table[pick], loc)
+    else:
+        lo, hi = span
+        loc = lo + (hi - lo) * loc
     attn = torch.softmax(torch.randn(b, q, h, n_levels * n_points, device="cuda", generator=g),
                          -1).reshape(b, q, h, n_levels, n_points)
     return value, loc, attn
@@ -97,48 +145,99 @@ def msda_inputs(shapes, b, q, h, d, dtype, lo=0.0, hi=1.0, seed=0):
 def msda_bound(value, loc, attn, out):
     """Least time for the call: every input read once and the output written
     once at the memory rate, or its arithmetic at the f32 rate (2 flops per
-    channel per corner sample, plus ~20 per sample for the corner weights)."""
+    channel per corner sample, plus ~20 per sample for the corner weights).
+    Also returns the bytes the corner gather reads from L2 (4 corners of D
+    channels per sample), a second figure beside the bound."""
     nbytes = sum(t.numel() * t.element_size() for t in (value, loc, attn, out))
     b, q, h, n_levels, n_points, _ = loc.shape
     d = value.shape[-1]
     samples = b * q * h * n_levels * n_points
     flops = samples * (4 * 2 * d + 20)
+    gather_bytes = samples * 4 * d * value.element_size()
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes
+    return (max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes,
+            gather_bytes)
+
+
+def check_ptxas(name: str, text: str) -> int:
+    """Print each kernel's registers, stack frame and spills from the ptxas
+    log of `csrc/<name>.cu`; raise if a kernel has a stack frame or spills.
+    Returns the number of kernels seen."""
+    rows, fn = [], None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            rows.append([fn, *map(int, m.groups()), None])
+        m = re.search(r"Used (\d+) registers", line)
+        if m and rows:
+            rows[-1][-1] = int(m.group(1))
+    for fn, frame, stores, loads, regs in rows:
+        t = re.search(r"kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELi(\d+)E", fn or "")
+        label = (f"<{'f32' if t.group(1) == 'f' else 'bf16'}, D={t.group(2)}, "
+                 f"{'L=P=4' if t.group(3) != '0' else 'generic L, P'}>" if t else fn)
+        log(f"  {name}{label}: {regs} registers, {frame} bytes stack frame, "
+            f"{stores} bytes spill stores, {loads} bytes spill loads")
+        if frame or stores or loads:
+            raise AssertionError(f"{name}{label} has a stack frame or spills")
+    return len(rows)
 
 
 def phase_kernels(msda_forward, ms_deform_attn_plain):
-    """Kernel vs plain at the main path's shapes; returns the encoder bf16
-    measurement for the kernels line."""
+    """Kernel vs plain at the main path's shapes; returns the bf16
+    measurements at the encoder and decoder shapes for the kernels line."""
     cases = [
-        ("encoder", ENC_SHAPES, 1, ENC_S, 8, 32, 0.0, 1.0),
-        ("decoder", ENC_SHAPES, 1, 900, 8, 32, 0.0, 1.0),
-        ("ragged", RAGGED_SHAPES, 2, 37, 3, 16, -0.1, 1.1),
+        ("encoder", ENC_SHAPES, 1, ENC_S, 8, 32, (0.0, 1.0)),
+        ("decoder", ENC_SHAPES, 1, 900, 8, 32, (0.0, 1.0)),
+        ("tail", ENC_SHAPES, 1, 901, 8, 32, (0.0, 1.0)),
+        ("edges", ENC_SHAPES, 2, 901, 8, 32, "edges"),
+        ("ragged", RAGGED_SHAPES, 2, 37, 3, 16, (-0.1, 1.1)),
     ]
-    record = None
-    for name, shapes, b, q, h, d, lo, hi in cases:
+    record = {}
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    for name, shapes, b, q, h, d, span in cases:
         for dtype in (torch.float32, torch.bfloat16):
-            value, loc, attn = msda_inputs(shapes, b, q, h, d, dtype, lo, hi)
-            out = msda_forward(value, shapes, loc, attn)
+            value, loc, attn = msda_inputs(shapes, b, q, h, d, dtype, span)
             want = ms_deform_attn_plain(value.float(), shapes, loc, attn)
+            scale = max(1.0, want.abs().max().item())
+            tol = F32_TOL * scale if dtype == torch.float32 else BF16_REL_TOL * scale
+
+            out = msda_forward(value, shapes, loc, attn)
             torch.cuda.synchronize()
             err = (out.float() - want).abs().max().item()
-            scale = max(1.0, want.abs().max().item())
-            rel = err / scale
-            tol = F32_TOL * scale if dtype == torch.float32 else BF16_REL_TOL * scale
-            ms = time_ms(lambda: msda_forward(value, shapes, loc, attn))
-            plain_ms = time_ms(lambda: ms_deform_attn_plain(value, shapes, loc, attn))
-            bound_ms, bound_by, nbytes = msda_bound(value, loc, attn, out)
-            log(f"msda_forward {name} {str(dtype)[6:]} B={b} Q={q} H={h} D={d} "
-                f"max_abs_err={err:.3e} rel_err={rel:.3e} tol={tol:.3e} "
-                f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
-                f"({bound_by}, {nbytes / 1e6:.1f} MB)")
             if not err <= tol:
                 raise AssertionError(f"msda_forward disagrees with the plain version at "
                                      f"{name} {dtype}: {err} > {tol}")
-            if name == "encoder" and dtype == torch.bfloat16:
-                record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                              bound_by=bound_by)
+            ms = time_ms(lambda: msda_forward(value, shapes, loc, attn))
+            device_ms = time_ms(lambda: msda_forward(value, shapes, loc, attn), spin=True)
+            plain_ms = time_ms(lambda: ms_deform_attn_plain(value, shapes, loc, attn))
+            bound_ms, bound_by, nbytes, gather_bytes = msda_bound(value, loc, attn, out)
+            log(f"msda_forward {name} {str(dtype)[6:]} B={b} Q={q} H={h} D={d} "
+                f"max_abs_err={err:.3e} rel_err={err / scale:.3e} tol={tol:.3e} "
+                f"call_ms={ms:.4f} device_ms={device_ms:.4f} plain_ms={plain_ms:.4f} "
+                f"bound_ms={bound_ms:.4f} ({bound_by}, {nbytes / 1e6:.1f} MB) "
+                f"share_of_bound call={bound_ms / ms:.3f} device={bound_ms / device_ms:.3f} "
+                f"l2_gather={gather_bytes / 1e6:.1f} MB "
+                f"({gather_bytes / device_ms / 1e9:.2f} TB/s over device_ms)")
+            if dtype != torch.bfloat16 or name not in ("encoder", "decoder", "ragged"):
+                continue
+            if name == "ragged":  # a launch of a few microseconds: the call is host time
+                record["host_us"] = host_us(lambda: msda_forward(value, shapes, loc, attn))
+                log(f"msda_forward host time per call, {record['host_us']:.1f} us (ragged "
+                    f"bf16, 200 calls back to back)")
+                continue
+            record[name] = dict(max_abs_err=err, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                                bound_ms=bound_ms, bound_by=bound_by,
+                                l2_gather_mb=gather_bytes / 1e6)
+            if name == "encoder":
+                cold = time_ms(lambda: msda_forward(value, shapes, loc, attn), flush=flush,
+                               spin=True)
+                record[name]["cold_l2_device_ms"] = cold
+                log(f"msda_forward {name} bf16 cold L2 ({L2_FLUSH_BYTES >> 20} MB written "
+                    f"before each launch): device_ms={cold:.4f}")
     return record
 
 
@@ -376,12 +475,11 @@ def main() -> int:
 
     # 2. build
     t0 = time.time()
-    logs = cuda_build.build_all()
+    cuda_build.build_all()
     log(f"build: {sorted(cuda_build.sources())} in {time.time() - t0:.2f} s")
-    for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+    for name in cuda_build.sources():
+        if not check_ptxas(name, cuda_build.log_path(name).read_text()):
+            raise AssertionError(f"no ptxas report for {name}.cu")
 
     # 3. kernels vs plain
     rec = phase_kernels(msda_forward, ms_deform_attn_plain)
@@ -396,19 +494,27 @@ def main() -> int:
         phase_profile(inference, request, args.profile, card_line)
 
     # 6. result
+    enc, dec = rec["encoder"], rec["decoder"]
     kernels = [{
         "name": "msda_forward",
         "route": "cuda",
         "source": "ziragroundingdino_torch/csrc/msda_forward.cu",
         "replaces": f"{tpu_kernel_file()}:72",
         "launches": launches,
-        "max_abs_err": rec["max_abs_err"],
-        "ms": rec["ms"],
-        "plain_ms": rec["plain_ms"],
-        "bound_ms": rec["bound_ms"],
-        "bound_by": rec["bound_by"],
+        "max_abs_err": enc["max_abs_err"],
+        "ms": enc["ms"],
+        "plain_ms": enc["plain_ms"],
+        "bound_ms": enc["bound_ms"],
+        "bound_by": enc["bound_by"],
         "library_ms": None,
         "timed_at": "encoder call, bf16 value, B=1 Q=S=20197 H=8 D=32 L=P=4",
+        "device_ms": enc["device_ms"],
+        "cold_l2_device_ms": enc["cold_l2_device_ms"],
+        "l2_gather_mb": enc["l2_gather_mb"],
+        "host_us": rec["host_us"],
+        "decoder": {k: dec[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                        "max_abs_err", "l2_gather_mb")},
+        "decoder_timed_at": "decoder call, bf16 value, B=1 Q=900 S=20197 H=8 D=32 L=P=4",
     }]
     log(json.dumps({"kernels": kernels}))
     log(card_line)

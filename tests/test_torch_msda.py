@@ -4,21 +4,24 @@
 kernel) is held at 1e-5 abs in f32 against `ms_deform_attn_xla`,
 `ms_deform_attn_xla_quad` and the Pallas kernel `ms_deform_attn_pallas`
 itself, run in Pallas interpret mode on the CPU. Cases cover out-of-range
-locations (zero padding), B=2, odd level sizes and D below a warp. The CUDA
-kernel is held against the plain version on the card (`cuda` marker).
+locations (zero padding), locations exactly on 0 and 1, B=2, odd level
+sizes, D below a warp and the main path's own mapping (H=8, D=32, L=P=4) at a
+Q whose items do not fill the kernel's last tile. The CUDA kernel is held
+against the plain version on the card (`cuda` marker), in both its (L, P)
+instantiations (L = P = 4 and the generic one) at every head dim it takes.
+JAX is imported inside the tests that use it, so that the card tests run
+where JAX is not installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_msda.py
 """
 
 import functools
 import types
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from ziragroundingdino_tpu.ops import msda as jmsda
-from ziragroundingdino_tpu.ops import msda_pallas
 from ziragroundingdino_torch.ops.msda import ms_deform_attn, ms_deform_attn_plain
 from ziragroundingdino_torch.ops.msda_cuda import msda_forward
 
@@ -29,16 +32,33 @@ CASES = {
     "inside": (1, 16, 2, 8, 2, ((6, 5), (3, 3)), (0.0, 1.0)),
     "ragged_b2": (2, 21, 3, 16, 4, ((7, 9), (5, 3), (2, 11), (1, 1)), (-0.1, 1.1)),
     "far_out": (2, 9, 2, 4, 3, ((4, 4), (2, 3)), (-3.0, 4.0)),
+    # the narrow D at L = P = 4, which the kernel instantiates apart
+    "narrow_d4": (1, 11, 3, 4, 4, ((5, 7), (3, 4), (2, 2), (1, 3)), (-0.2, 1.2)),
+    "narrow_d8": (1, 13, 2, 8, 4, ((4, 6), (2, 3), (1, 2), (1, 1)), (0.0, 1.0)),
+    # the main path's mapping at an odd Q; a fifth of the coordinates each
+    # exactly 0, exactly 1, far below 0 and far above 1, the rest in [0, 1]
+    "main_tail": (2, 45, 8, 32, 4, ((10, 12), (5, 6), (3, 3), (2, 1)), "edges"),
+    # the generic (L, P) instantiation at the wide head dims
+    "generic_d32": (1, 19, 8, 32, 3, ((9, 7), (4, 5), (2, 3)), "edges"),
+    "generic_d16": (2, 7, 2, 16, 2, ((3, 3), (2, 2), (1, 4), (1, 1), (2, 1)), (-0.5, 1.5)),
 }
+EDGES = (0.0, 1.0, -7.5, 8.25)
 
 
 def _inputs(case, seed=0):
-    b, q, h, d, p, shapes, (lo, hi) = CASES[case]
+    b, q, h, d, p, shapes, span = CASES[case]
     rng = np.random.RandomState(seed)
     s = sum(hh * ww for hh, ww in shapes)
     n_levels = len(shapes)
     value = rng.randn(b, s, h, d).astype(np.float32)
-    loc = (lo + (hi - lo) * rng.rand(b, q, h, n_levels, p, 2)).astype(np.float32)
+    size = (b, q, h, n_levels, p, 2)
+    if span == "edges":
+        pick = rng.randint(0, len(EDGES) + 1, size)
+        loc = np.where(pick < len(EDGES), np.take(EDGES + (0.0,), pick), rng.rand(*size))
+        loc = loc.astype(np.float32)
+    else:
+        lo, hi = span
+        loc = (lo + (hi - lo) * rng.rand(*size)).astype(np.float32)
     attn = rng.rand(b, q, h, n_levels, p).astype(np.float32)
     attn /= attn.sum(axis=(-2, -1), keepdims=True)
     return shapes, value, loc, attn
@@ -52,6 +72,10 @@ def _port(shapes, value, loc, attn):
 @pytest.mark.parametrize("case", sorted(CASES))
 @pytest.mark.parametrize("ref", ["xla", "xla_quad"])
 def test_plain_matches_jax(case, ref):
+    import jax
+    import jax.numpy as jnp
+    from ziragroundingdino_tpu.ops import msda as jmsda
+
     shapes, value, loc, attn = _inputs(case)
     fn = {"xla": jmsda.ms_deform_attn_xla, "xla_quad": jmsda.ms_deform_attn_xla_quad}[ref]
     want = np.asarray(jax.jit(fn, static_argnums=1)(
@@ -62,7 +86,10 @@ def test_plain_matches_jax(case, ref):
 @pytest.mark.parametrize("case", ["ragged_b2", "far_out"])
 def test_plain_matches_pallas_interpret(case, monkeypatch):
     """The TPU kernel itself, in Pallas interpret mode, without editing it."""
+    import jax
+    import jax.numpy as jnp
     from jax.experimental import pallas as pl
+    from ziragroundingdino_tpu.ops import msda_pallas
 
     shim = types.SimpleNamespace(**{n: getattr(pl, n) for n in dir(pl) if not n.startswith("__")})
     shim.pallas_call = functools.partial(pl.pallas_call, interpret=True)
@@ -98,6 +125,44 @@ def test_cuda_wrapper_refuses_what_it_cannot_run():
     assert msda_forward.launches == before
 
 
+def _refused(case):
+    """Inputs that the kernel does not take, built from the "inside" case."""
+    shapes, value, loc, attn = _inputs("inside")
+    v, l_, a = torch.from_numpy(value), torch.from_numpy(loc), torch.from_numpy(attn)
+    if case == "head_dim":
+        v = torch.zeros(*v.shape[:3], 64)
+    elif case == "unaligned":
+        v = torch.zeros(v.numel() + 1)[1:].view(v.shape)
+    elif case == "too_many_samples":
+        l_ = torch.zeros(*l_.shape[:4], 33, 2)
+        a = torch.zeros(*a.shape[:4], 33)
+    elif case == "samples_over_cap":
+        l_ = torch.zeros(*l_.shape[:4], 16, 2)
+        a = torch.zeros(*a.shape[:4], 16)
+    elif case == "too_many_levels":
+        shapes = ((1, 1),) * 9
+        v = torch.zeros(v.shape[0], 9, *v.shape[2:])
+        l_ = torch.zeros(*l_.shape[:3], 9, *l_.shape[4:])
+        a = torch.zeros(*a.shape[:3], 9, a.shape[4])
+    elif case == "attn_shape":
+        a = a[..., :1].contiguous()
+    elif case == "attn_dtype":
+        a = a.double()
+    return (v, shapes, l_, a)
+
+
+@pytest.mark.parametrize("case, match", [
+    ("head_dim", "head dim D=64"), ("unaligned", "16-byte aligned"),
+    ("too_many_samples", "L\\*P=66"), ("samples_over_cap", "L\\*P=32 samples exceed 31"),
+    ("too_many_levels", "9 spatial shapes"),
+    ("attn_shape", "attention_weights must be"), ("attn_dtype", "must be float32")])
+def test_cuda_wrapper_refuses_inputs_the_kernel_does_not_take(case, match):
+    before = msda_forward.launches
+    with pytest.raises(ValueError, match=match):
+        msda_forward(*_refused(case))
+    assert msda_forward.launches == before
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -108,16 +173,19 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernel_matches_plain_on_card(cuda_device, dtype):
-    """f32: 1e-5 of the output's scale (summation order); bf16: the kernel
-    against the plain version in f32 on the same bf16 inputs, 1e-2 relative
-    (only the bf16 rounding of the output differs)."""
+    """Every case. f32: 1e-5 of the output's scale (summation order); bf16:
+    the kernel against the plain version in f32 on the same bf16 inputs,
+    1e-2 relative (only the bf16 rounding of the output differs). Each call
+    counts one launch."""
     dt = getattr(torch, dtype)
     for case in sorted(CASES):
         shapes, value, loc, attn = _inputs(case)
         v = torch.from_numpy(value).to(cuda_device, dt)
         l_ = torch.from_numpy(loc).to(cuda_device)
         a = torch.from_numpy(attn).to(cuda_device)
+        before = msda_forward.launches
         got = msda_forward(v, shapes, l_, a).float()
+        assert msda_forward.launches == before + 1
         want = ms_deform_attn_plain(v.float(), shapes, l_, a)
         scale = max(1.0, want.abs().max().item())
         tol = ATOL * scale if dt == torch.float32 else 1e-2 * scale

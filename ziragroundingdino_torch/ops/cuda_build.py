@@ -4,7 +4,8 @@ Every `csrc/<name>.cu` becomes its own shared library with a plain C
 interface, compiled for Hopper (`sm_90a`) at first use into `build/
 torch_kernels/` at the root of the checkout (listed in `.gitignore`). The
 library's file name carries a hash of its source, so an edited source is
-rebuilt and a stale build is never loaded. `build_all()` starts one nvcc per
+rebuilt and a stale build is never loaded; nvcc's log (with `ptxas -v`)
+sits beside it under the same name. `build_all()` starts one nvcc per
 source, all at once, and waits for them.
 """
 
@@ -45,6 +46,11 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
+def log_path(name: str) -> Path:
+    """nvcc's log of the library that `load(name)` loads."""
+    return _lib_path(name).with_suffix(".log")
+
+
 def _start(name: str):
     """Start nvcc for one source; returns (process, tmp output, final path,
     log file) or None when the library is already built."""
@@ -54,7 +60,7 @@ def _start(name: str):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    log = open(BUILD_DIR / f"{name}.log", "w")
+    log = open(log_path(name), "w")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
     return proc, tmp, final, log
@@ -64,7 +70,7 @@ def _finish(name: str, job) -> None:
     proc, tmp, final, log = job
     rc = proc.wait()
     log.close()
-    text = (BUILD_DIR / f"{name}.log").read_text()
+    text = Path(log.name).read_text()
     if rc != 0:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed on {name}.cu (exit {rc}):\n{text}")
@@ -80,7 +86,7 @@ def build_all() -> Dict[str, str]:
         for name, job in jobs.items():
             if job is not None:
                 _finish(name, job)
-                logs[name] = (BUILD_DIR / f"{name}.log").read_text()
+                logs[name] = Path(job[3].name).read_text()
     finally:
         for job in jobs.values():
             if job is not None and job[0].poll() is None:
