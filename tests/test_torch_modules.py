@@ -37,6 +37,7 @@ from ziragroundingdino_torch.models import position_encoding as ppos
 from ziragroundingdino_torch.models import swin as pswin
 from ziragroundingdino_torch.models import transformer as ptr
 from ziragroundingdino_torch.models.heads import ContrastiveEmbed
+from ziragroundingdino_torch.ops import box_ops as pbox
 from ziragroundingdino_torch.text import masks as pmasks
 from ziragroundingdino_torch.text import tokenizer as ptok
 
@@ -295,7 +296,7 @@ def _fn_cases():
 
 _FN_MODULES = {
     "get_sine_pos_embed": (jlayers, players), "gen_sineembed_for_position": (jlayers, players),
-    "inverse_sigmoid": (jlayers, players),
+    "inverse_sigmoid": (jlayers, pbox),
     "position_embedding_sine_hw": (jpos, ppos), "compute_valid_ratios": (jtr, ptr),
     "encoder_reference_points": (jtr, ptr), "gen_encoder_output_proposals": (jtr, ptr),
     "interpolate_mask_nearest": (jswin, pswin),

@@ -1,4 +1,5 @@
-"""The port's MSDA against the JAX package's three MSDA forwards.
+"""The port's MSDA against the JAX package's three MSDA forwards and its
+gradients against the JAX package's custom VJP.
 
 `ms_deform_attn_plain` (the CPU path and the plain version of the CUDA
 kernel) is held at 1e-5 abs in f32 against `ms_deform_attn_xla`,
@@ -9,6 +10,11 @@ sizes, D below a warp and the main path's own mapping (H=8, D=32, L=P=4) at a
 Q whose items do not fill the kernel's last tile. The CUDA kernel is held
 against the plain version on the card (`cuda` marker), in both its (L, P)
 instantiations (L = P = 4 and the generic one) at every head dim it takes.
+The gradients: `ms_deform_attn_backward_plain` (the plain version of the
+CUDA backward kernel) and autograd through `ms_deform_attn_plain` (the CPU
+path) against `jax.vjp` of `ms_deform_attn_quad` (the hand-written backward)
+and of `ms_deform_attn_xla`, each gradient at 1e-5 of its own largest
+magnitude in f32; on the card, `msda_backward` against the plain backward.
 JAX is imported inside the tests that use it, so that the card tests run
 where JAX is not installed:
 
@@ -22,8 +28,12 @@ import numpy as np
 import pytest
 import torch
 
-from ziragroundingdino_torch.ops.msda import ms_deform_attn, ms_deform_attn_plain
-from ziragroundingdino_torch.ops.msda_cuda import msda_forward
+from ziragroundingdino_torch.ops.msda import (
+    ms_deform_attn,
+    ms_deform_attn_backward_plain,
+    ms_deform_attn_plain,
+)
+from ziragroundingdino_torch.ops.msda_cuda import msda_backward, msda_forward
 
 ATOL = 1e-5
 
@@ -100,6 +110,48 @@ def test_plain_matches_pallas_interpret(case, monkeypatch):
     np.testing.assert_allclose(_port(shapes, value, loc, attn), want, atol=ATOL, rtol=0)
 
 
+def _grad_out(case, seed=1):
+    b, q, h, d = CASES[case][:4]
+    return np.random.RandomState(seed).randn(b, q, h * d).astype(np.float32)
+
+
+def _port_grads(shapes, value, loc, attn, g):
+    """(plain backward, autograd through the plain forward), each (d_value,
+    d_loc, d_attn) as numpy."""
+    t = [torch.from_numpy(x) for x in (value, loc, attn)]
+    explicit = ms_deform_attn_backward_plain(*t[:1], shapes, *t[1:], torch.from_numpy(g),
+                                             q_chunk=8)
+    leaves = [x.clone().requires_grad_(True) for x in t]
+    ms_deform_attn_plain(leaves[0], shapes, *leaves[1:], q_chunk=8).backward(
+        torch.from_numpy(g))
+    return [x.numpy() for x in explicit], [x.grad.numpy() for x in leaves]
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_gradients_match_jax(case):
+    """d_value, d_loc and d_attn of the port (plain backward and autograd)
+    against jax.vjp of `ms_deform_attn_quad` (custom VJP) and of
+    `ms_deform_attn_xla` (autodiff), at 1e-5 times each gradient's largest
+    magnitude: d_loc carries the level's width or height as a factor."""
+    import jax
+    import jax.numpy as jnp
+    from ziragroundingdino_tpu.ops import msda as jmsda
+
+    shapes, value, loc, attn = _inputs(case)
+    g = _grad_out(case)
+    explicit, autograd = _port_grads(shapes, value, loc, attn, g)
+    for fn in (jmsda.ms_deform_attn_quad, jmsda.ms_deform_attn_xla):
+        def pull(v, l_, a, g_, fn=fn):
+            return jax.vjp(lambda *x: fn(x[0], shapes, *x[1:]), v, l_, a)[1](g_)
+
+        want = [np.asarray(x) for x in jax.jit(pull)(*map(jnp.asarray, (value, loc, attn, g)))]
+        for name, w, e, a in zip(("d_value", "d_loc", "d_attn"), want, explicit, autograd):
+            tol = ATOL * max(np.abs(w).max(), 1e-30)
+            for got, how in ((e, "plain backward"), (a, "autograd")):
+                np.testing.assert_allclose(got, w, atol=tol, rtol=0,
+                                           err_msg=f"{case} {fn.__name__} {name} {how}")
+
+
 def test_dispatch_and_chunking():
     """CPU tensors take the plain version; the Q chunk size changes nothing;
     bf16 value gives a bf16 output."""
@@ -123,6 +175,13 @@ def test_cuda_wrapper_refuses_what_it_cannot_run():
     with pytest.raises(ValueError, match="requires grad"):
         msda_forward(v.requires_grad_(True), shapes, l_, a)
     assert msda_forward.launches == before
+    g = torch.from_numpy(_grad_out("inside"))
+    before = msda_backward.launches
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        msda_backward(v.detach(), shapes, l_, a, g)
+    with pytest.raises(ValueError, match="grad_out must be"):
+        msda_backward(v.detach(), shapes, l_, a, g[:, 1:])
+    assert msda_backward.launches == before
 
 
 def _refused(case):
@@ -190,3 +249,51 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype):
         scale = max(1.0, want.abs().max().item())
         tol = ATOL * scale if dt == torch.float32 else 1e-2 * scale
         assert (got - want).abs().max().item() <= tol, case
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_kernel_matches_plain_on_card(cuda_device, dtype):
+    """Every case: `msda_backward` against `ms_deform_attn_backward_plain` on
+    the same inputs (bf16: the plain backward in f32 on the bf16 inputs).
+    f32: 1e-5 of each gradient's largest magnitude (summation order, and
+    atomic adds in an order that varies); bf16: d_value 1e-2 of its scale
+    (its one bf16 rounding), d_loc and d_attn 1e-4 (f32 outputs; the
+    products with bf16 inputs are exact in f32). Each call counts one
+    launch."""
+    dt = getattr(torch, dtype)
+    for case in sorted(CASES):
+        shapes, value, loc, attn = _inputs(case)
+        v = torch.from_numpy(value).to(cuda_device, dt)
+        l_ = torch.from_numpy(loc).to(cuda_device)
+        a = torch.from_numpy(attn).to(cuda_device)
+        g = torch.from_numpy(_grad_out(case)).to(cuda_device, dt)
+        before = msda_backward.launches
+        got = msda_backward(v, shapes, l_, a, g)
+        assert msda_backward.launches == before + 1
+        want = ms_deform_attn_backward_plain(v.float(), shapes, l_, a, g.float())
+        for name, x, w in zip(("d_value", "d_loc", "d_attn"), got, want):
+            assert x.dtype == (dt if name == "d_value" else torch.float32), name
+            scale = max(w.abs().max().item(), 1e-30)
+            rel = ATOL if dt == torch.float32 else (1e-2 if name == "d_value" else 1e-4)
+            err = (x.float() - w).abs().max().item()
+            assert err <= rel * scale, (case, name, err, scale)
+
+
+@pytest.mark.cuda
+def test_autograd_on_card_launches_both_kernels(cuda_device):
+    """On CUDA tensors, `ms_deform_attn` under autograd launches
+    `msda_forward` once and `msda_backward` once, and its gradients are the
+    plain backward's."""
+    shapes, value, loc, attn = _inputs("main_tail")
+    leaves = [torch.from_numpy(x).to(cuda_device).requires_grad_(True)
+              for x in (value, loc, attn)]
+    g = torch.from_numpy(_grad_out("main_tail")).to(cuda_device)
+    fwd, bwd = msda_forward.launches, msda_backward.launches
+    out = ms_deform_attn(leaves[0], shapes, *leaves[1:])
+    out.backward(g)
+    assert (msda_forward.launches - fwd, msda_backward.launches - bwd) == (1, 1)
+    want = ms_deform_attn_backward_plain(*[x.detach() for x in leaves[:1]], shapes,
+                                         *[x.detach() for x in leaves[1:]], g)
+    for x, w in zip(leaves, want):
+        assert (x.grad - w).abs().max().item() <= ATOL * max(w.abs().max().item(), 1e-30)

@@ -5,7 +5,8 @@ its serving path reads: `SwinConfig`, `BertConfig`, `GroundingDINOConfig`,
 `DataConfig` and the `dualzerorepbranchgroundingdino` preset (the ZiRa
 headline model, `GroundingDINO_SwinT_OGC_rep.py` in the reference). Field
 names and defaults are those of the JAX package, so one set of overrides
-configures both. `compute_dtype` names a `torch.dtype`; there is no
+configures both. `OptimizerConfig` and `ScheduleConfig` are the train step's
+(`train/optim.py`). `compute_dtype` names a `torch.dtype`; there is no
 `msda_impl`: the port has one MSDA and dispatches on the device. The
 switches that select another preset's architecture (`use_cet`,
 `use_project_adapter`, `use_fusion_layer`, `two_stage_type`, ...) are not
@@ -70,7 +71,7 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 class GroundingDINOConfig:
     """Model config; fields as in the JAX package's `GroundingDINOConfig`
     (values from `GroundingDINO_SwinT_OGC_rep.py`). Only the fields that the
-    serving path reads are kept."""
+    serving path and the train step read are kept."""
 
     modelname: str = "dualzerorepbranchgroundingdino"
     pe_temperature_h: float = 20.0
@@ -80,6 +81,7 @@ class GroundingDINOConfig:
     dec_layers: int = 6
     dim_feedforward: int = 2048
     hidden_dim: int = 256
+    dropout: float = 0.0
     nheads: int = 8
     num_queries: int = 900
     num_feature_levels: int = 4
@@ -87,6 +89,15 @@ class GroundingDINOConfig:
     dec_n_points: int = 4
     transformer_activation: str = "relu"
     max_text_len: int = 256
+    text_dropout: float = 0.0
+    fusion_dropout: float = 0.0
+    fusion_droppath: float = 0.1
+    # train
+    aux_loss: bool = True
+    # ZiRa zero-interference losses (`GroundingDINO_SwinT_OGC_rep.py:62-96`)
+    use_zero_inter_loss: bool = True
+    use_zero_inter_loss_for_conv: bool = True
+    loss_adapter_weight: float = 0.1
     zira_zero_init: float = 1e-8
     zira_lan_scale: float = 0.1
     zira_vis_scale: float = 0.1
@@ -143,6 +154,34 @@ def dtype_name(dtype) -> str:
         if dt == dtype:
             return name
     raise ValueError(f"unsupported compute dtype {dtype}")
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    """AdamW defaults (`config/configs/common/optim.py:16-28` and the task
+    configs). `lr_factors`: per-parameter lr multipliers keyed by substring
+    of the parameter name, as detectron2's `lr_factor_func`."""
+
+    name: str = "adamw"
+    lr: float = 1e-3
+    weight_decay: float = 1e-4
+    betas: Tuple[float, float] = (0.9, 0.999)
+    grad_clip: float = 0.1
+    lr_factors: Tuple[Tuple[str, float], ...] = ()
+
+
+@dataclass(frozen=True)
+class ScheduleConfig:
+    """Multi-step schedule (`config/configs/common/coco_schedule.py:91-125`):
+    x0.1 at 8/9 and 17/18 of the run; also "cosine", "linear", "constant"
+    and "exponential", each after an optional linear warmup."""
+
+    name: str = "multistep"
+    max_iter: int = 2000
+    warmup_iter: int = 0
+    warmup_factor: float = 0.001
+    milestones_frac: Tuple[float, ...] = (8.0 / 9.0, 17.0 / 18.0)
+    gamma: float = 0.1
 
 
 @dataclass(frozen=True)

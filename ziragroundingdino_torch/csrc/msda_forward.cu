@@ -46,46 +46,11 @@
 //     is at most kMaxSamples, so that the widest tile (128 items, at one
 //     lane an item) stages its loc/attn in 48 KB of shared memory.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "msda_common.cuh"
 
 namespace {
 
-constexpr int kMaxLevels = 8;
-constexpr int kMaxSamples = 31;  // L * P
-// 32 items a block at bf16 D=32, so the decoder's 7,200 items make 225
-// blocks for the 132 SMs.
-constexpr int kThreads = 128;
-
-struct Levels {
-  int h[kMaxLevels];
-  int w[kMaxLevels];
-  int start[kMaxLevels];
-};
-
-template <int BYTES>
-struct Chunk;
-template <>
-struct Chunk<16> {
-  using type = uint4;
-};
-template <>
-struct Chunk<8> {
-  using type = uint2;
-};
-
-// How the D channels of one row are split over the lanes of an item.
-template <typename T, int D>
-struct Split {
-  static constexpr int kRowBytes = D * (int)sizeof(T);
-  static constexpr int kBytes = kRowBytes < 16 ? kRowBytes : 16;
-  static constexpr int kVec = kBytes / (int)sizeof(T);  // channels per lane
-  static constexpr int kLanes = D / kVec;               // lanes per item
-  static constexpr int kWords = kBytes / 4;
-  using Word = typename Chunk<kBytes>::type;
-  static_assert(kLanes * kVec == D && 32 % kLanes == 0, "unsupported D");
-};
+using namespace msda;
 
 // acc[j] += wt * element j of the 32-bit word u (one f32 or two bf16).
 __device__ __forceinline__ void add_word(float* acc, uint32_t u, float wt, float) {
@@ -139,25 +104,6 @@ __device__ __forceinline__ void corners(float lx, float ly, float a, int h_l, in
   wt[3] = vy1 && vx1 ? __fmul_rn(fx, fy) * a : 0.f;
 }
 
-// N floats from shared memory; 16-byte reads when N is a multiple of 4
-// (the caller keeps p 16-byte aligned then).
-template <int N>
-__device__ __forceinline__ void read_shared(const float* p, float* out) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < N / 4; ++i) {
-      const float4 v = reinterpret_cast<const float4*>(p)[i];
-      out[4 * i] = v.x;
-      out[4 * i + 1] = v.y;
-      out[4 * i + 2] = v.z;
-      out[4 * i + 3] = v.w;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i) out[i] = p[i];
-  }
-}
-
 // NS samples of one level: every corner's offset and weight first, then all
 // 4*NS loads, then the sum.
 template <typename T, int D, int NS>
@@ -187,38 +133,6 @@ __device__ __forceinline__ void gather(const float* loc_s, const float* attn_s, 
   }
 }
 
-// Copies n rows of k floats, contiguous in global memory, into shared memory
-// rows of `stride` floats, V floats per load (V = 4: 16-byte loads; the
-// caller keeps src 16-byte aligned and k, stride multiples of 4).
-template <int V>
-__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src, int n, int k,
-                                      int stride) {
-  const int per_row = k / V;
-  const int units = n * per_row;
-  for (int j = threadIdx.x; j < units; j += blockDim.x) {
-    const int r = j / per_row;
-    const int c = j - r * per_row;
-    if constexpr (V == 4) {
-      reinterpret_cast<float4*>(dst + r * stride)[c] =
-          __ldcs(reinterpret_cast<const float4*>(src) + j);
-    } else {
-      dst[r * stride + c] = __ldcs(src + j);
-    }
-  }
-}
-
-// Shared-memory row strides of an item's loc (k2 = 2*L*P floats) and attn
-// (k1 = L*P): padded so that the items of a warp start on distinct banks.
-__host__ __device__ constexpr int padded(int k, bool wide) { return wide ? k + 4 : (k | 1); }
-
-// Shared memory of a block whose items take `lanes` lanes each.
-__host__ __device__ constexpr size_t smem_bytes(int lanes, int k1, bool wide) {
-  return (size_t)(kThreads / lanes) * (padded(k1, wide) + padded(2 * k1, wide)) * sizeof(float);
-}
-static_assert(smem_bytes(1, kMaxSamples, false) <= 48 * 1024 &&
-                  smem_bytes(1, 16, true) <= 48 * 1024,
-              "a tile's staged loc/attn must fit 48 KB of shared memory");
-
 // kL = kP = 0: L and P are taken at run time (the generic instantiation).
 template <typename T, int D, int kL, int kP>
 __global__ void __launch_bounds__(kThreads)
@@ -242,14 +156,7 @@ msda_forward_kernel(const T* __restrict__ value, const float* __restrict__ loc,
   float* s_loc = reinterpret_cast<float*>(smem);
   float* s_attn = s_loc + tile * st2;
   __shared__ int s_lv[3 * kMaxLevels];
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int i = 0; i < kMaxLevels; ++i) {
-      s_lv[i] = lv.h[i];
-      s_lv[kMaxLevels + i] = lv.w[i];
-      s_lv[2 * kMaxLevels + i] = lv.start[i];
-    }
-  }
+  copy_levels(lv, s_lv);
   constexpr int V = kStatic ? 4 : 1;
   stage<V>(s_loc, loc + (int64_t)item0 * k2, n_tile, k2, st2);
   stage<V>(s_attn, attn + (int64_t)item0 * k1, n_tile, k1, st1);
@@ -315,19 +222,10 @@ int launch_d(const void* value, const void* loc, const void* attn, void* out, in
 template <typename T>
 int launch(const void* value, const void* loc, const void* attn, void* out, int B, int S,
            int H, int D, int Q, int L, int P, const int* level_hw, void* stream) {
-  if (L < 1 || L > kMaxLevels || P < 1 || L * P > kMaxSamples) return (int)cudaErrorInvalidValue;
-  Levels lv = {};
-  int64_t start = 0;
-  for (int l = 0; l < L; ++l) {
-    lv.h[l] = level_hw[2 * l];
-    lv.w[l] = level_hw[2 * l + 1];
-    lv.start[l] = (int)start;
-    start += (int64_t)lv.h[l] * lv.w[l];
-  }
-  if (start != S) return (int)cudaErrorInvalidValue;
-  const int64_t n_items = (int64_t)B * Q * H;
-  // item indices and value offsets within a batch element are 32-bit
-  if (n_items > INT32_MAX || (int64_t)S * H * D > INT32_MAX) return (int)cudaErrorInvalidValue;
+  Levels lv;
+  int64_t n_items;
+  const cudaError_t checked = plan(B, S, H, D, Q, L, P, level_hw, &lv, &n_items);
+  if (checked != cudaSuccess) return (int)checked;
   if (n_items == 0) return (int)cudaSuccess;
   const int n = (int)n_items;
   cudaStream_t st = (cudaStream_t)stream;

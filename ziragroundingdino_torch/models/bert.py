@@ -4,7 +4,9 @@ It takes the **3-D block-diagonal attention mask** and **per-span position
 ids** of `text.masks` as first-class inputs (what the reference's
 `BertModelWarper`, `bertwarper.py:17-166`, feeds HF `BertModel`). HF
 numerics: post-LN encoder, LayerNorm eps 1e-12, exact GELU, masked logits
-get a large finite negative before an f32 softmax. Module names follow HF
+get a large finite negative before an f32 softmax. Dropout (HF's sites,
+`hidden_dropout` and `attention_dropout`) draws from the generator given to
+`forward`, and is off without one. Module names follow HF
 (`bert.encoder.layer.0.attention.self.query.weight`). The pooler is left
 out: the reference never uses its output for detection.
 """
@@ -18,7 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ziragroundingdino_torch.config import BertConfig
-from ziragroundingdino_torch.models.layers import NEG_INF, Embedding, LayerNorm, Linear
+from ziragroundingdino_torch.models.layers import NEG_INF, Embedding, LayerNorm, Linear, dropout
 
 
 class BertEmbeddings(nn.Module):
@@ -39,12 +41,14 @@ class BertSelfAttention(nn.Module):
     def __init__(self, cfg: BertConfig, compute_dtype):
         super().__init__()
         self.num_heads = cfg.num_attention_heads
+        self.dropout = cfg.attention_dropout
         self.query = Linear(cfg.hidden_size, cfg.hidden_size, compute_dtype=compute_dtype)
         self.key = Linear(cfg.hidden_size, cfg.hidden_size, compute_dtype=compute_dtype)
         self.value = Linear(cfg.hidden_size, cfg.hidden_size, compute_dtype=compute_dtype)
         self.compute_dtype = compute_dtype
 
-    def forward(self, x: torch.Tensor, attn_bias: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, attn_bias: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         b, t, e = x.shape
         h = self.num_heads
         hd = e // h
@@ -55,21 +59,23 @@ class BertSelfAttention(nn.Module):
 
         q, k, v = heads(self.query(x)), heads(self.key(x)), heads(self.value(x))
         logits = torch.matmul(q, k.transpose(-1, -2)).float() * (hd ** -0.5) + attn_bias
-        probs = torch.softmax(logits, dim=-1)
+        probs = dropout(torch.softmax(logits, dim=-1), self.dropout, generator)
         out = torch.matmul(probs.to(cd), v)
         return out.transpose(1, 2).reshape(b, t, e)
 
 
 class _DenseNorm(nn.Module):
-    """`dense` + residual `LayerNorm` (HF BertSelfOutput / BertOutput)."""
+    """`dense`, dropout and residual `LayerNorm` (HF BertSelfOutput /
+    BertOutput)."""
 
-    def __init__(self, d_in: int, d_out: int, eps: float, compute_dtype):
+    def __init__(self, d_in: int, d_out: int, eps: float, rate: float, compute_dtype):
         super().__init__()
         self.dense = Linear(d_in, d_out, compute_dtype=compute_dtype)
         self.LayerNorm = LayerNorm(d_out, eps=eps)
+        self.rate = rate
 
-    def forward(self, y, residual):
-        return self.LayerNorm(residual + self.dense(y))
+    def forward(self, y, residual, generator=None):
+        return self.LayerNorm(residual + dropout(self.dense(y), self.rate, generator))
 
 
 class BertAttention(nn.Module):
@@ -77,10 +83,10 @@ class BertAttention(nn.Module):
         super().__init__()
         self.self = BertSelfAttention(cfg, compute_dtype)
         self.output = _DenseNorm(cfg.hidden_size, cfg.hidden_size, cfg.layer_norm_eps,
-                                 compute_dtype)
+                                 cfg.hidden_dropout, compute_dtype)
 
-    def forward(self, x, attn_bias):
-        return self.output(self.self(x, attn_bias), x)
+    def forward(self, x, attn_bias, generator=None):
+        return self.output(self.self(x, attn_bias, generator), x, generator)
 
 
 class BertIntermediate(nn.Module):
@@ -98,11 +104,11 @@ class BertLayer(nn.Module):
         self.attention = BertAttention(cfg, compute_dtype)
         self.intermediate = BertIntermediate(cfg, compute_dtype)
         self.output = _DenseNorm(cfg.intermediate_size, cfg.hidden_size, cfg.layer_norm_eps,
-                                 compute_dtype)
+                                 cfg.hidden_dropout, compute_dtype)
 
-    def forward(self, x, attn_bias):
-        x = self.attention(x, attn_bias)
-        return self.output(self.intermediate(x), x)
+    def forward(self, x, attn_bias, generator=None):
+        x = self.attention(x, attn_bias, generator)
+        return self.output(self.intermediate(x), x, generator)
 
 
 class _LayerStack(nn.Module):
@@ -120,6 +126,7 @@ class BertEncoder(nn.Module):
         self.embeddings = BertEmbeddings(cfg)
         self.encoder = _LayerStack(cfg, compute_dtype)
         self.compute_dtype = compute_dtype
+        self.hidden_dropout = cfg.hidden_dropout
 
     def forward(
         self,
@@ -127,6 +134,7 @@ class BertEncoder(nn.Module):
         attention_mask: torch.Tensor,  # [B, T, T] or [B, T] bool, True = attend
         position_ids: Optional[torch.Tensor] = None,  # [B, T]
         token_type_ids: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         b, t = input_ids.shape
         if position_ids is None:
@@ -134,10 +142,10 @@ class BertEncoder(nn.Module):
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
         x = self.embeddings(input_ids.long(), position_ids.long(), token_type_ids.long())
-        x = x.to(self.compute_dtype or x.dtype)
+        x = dropout(x, self.hidden_dropout, generator).to(self.compute_dtype or x.dtype)
         mask = attention_mask[:, None, None, :] if attention_mask.dim() == 2 \
             else attention_mask[:, None, :, :]
         bias = torch.where(mask, 0.0, NEG_INF).float()
         for layer in self.encoder.layer:
-            x = layer(x, bias)
+            x = layer(x, bias, generator)
         return x

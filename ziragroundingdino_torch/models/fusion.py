@@ -7,7 +7,8 @@ directions. The reference's "stable softmax" prelude (global-max subtract,
 package: softmax is shift-invariant and after a max subtraction the clamps
 never bind in f32. `BiAttentionBlock`: pre-LN, layer scale gamma_v/gamma_l
 (init 1e-4), residual onto the *normalized* input as in the reference
-(`:288-303`). Masks are True = valid.
+(`:288-303`). Masks are True = valid. Attention dropout and drop path draw
+from the generator given to `forward`, and are off without one.
 """
 
 from __future__ import annotations
@@ -17,16 +18,17 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from ziragroundingdino_torch.models.layers import NEG_INF, LayerNorm, Linear
+from ziragroundingdino_torch.models.layers import NEG_INF, LayerNorm, Linear, drop_path, dropout
 
 
 class BiMultiHeadAttention(nn.Module):
     def __init__(self, v_dim: int, l_dim: int, embed_dim: int, num_heads: int,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None, dropout: float = 0.0):
         super().__init__()
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.compute_dtype = compute_dtype
+        self.dropout = dropout
         kw = dict(compute_dtype=compute_dtype)
         self.v_proj = Linear(v_dim, embed_dim, **kw)
         self.l_proj = Linear(l_dim, embed_dim, **kw)
@@ -41,6 +43,7 @@ class BiMultiHeadAttention(nn.Module):
         l: torch.Tensor,  # [B, Nl, l_dim]
         mask_v: Optional[torch.Tensor] = None,  # [B, Nv] True = valid
         mask_l: Optional[torch.Tensor] = None,  # [B, Nl] True = valid
+        generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         h = self.num_heads
         hd = self.embed_dim // h
@@ -63,6 +66,8 @@ class BiMultiHeadAttention(nn.Module):
         if mask_l is not None:
             logits = logits.masked_fill(~mask_l[:, None, None, :], NEG_INF)
         attn_v = torch.softmax(logits, dim=-1)
+        attn_v = dropout(attn_v, self.dropout, generator)
+        attn_l = dropout(attn_l, self.dropout, generator)
 
         out_v = torch.matmul(attn_v.to(cd), val_l)  # [B, h, Nv, hd]
         out_l = torch.matmul(attn_l.to(cd).transpose(-1, -2), val_v)  # [B, h, Nl, hd]
@@ -73,12 +78,15 @@ class BiMultiHeadAttention(nn.Module):
 
 class BiAttentionBlock(nn.Module):
     def __init__(self, v_dim: int, l_dim: int, embed_dim: int, num_heads: int,
-                 init_values: float = 1e-4, compute_dtype: Optional[torch.dtype] = None):
+                 init_values: float = 1e-4, compute_dtype: Optional[torch.dtype] = None,
+                 dropout: float = 0.0, drop_path: float = 0.0):
         super().__init__()
         self.init_values = init_values
+        self.drop_path = drop_path
         self.layer_norm_v = LayerNorm(v_dim)
         self.layer_norm_l = LayerNorm(l_dim)
-        self.attn = BiMultiHeadAttention(v_dim, l_dim, embed_dim, num_heads, compute_dtype)
+        self.attn = BiMultiHeadAttention(v_dim, l_dim, embed_dim, num_heads, compute_dtype,
+                                         dropout)
         self.gamma_v = nn.Parameter(torch.empty(v_dim))
         self.gamma_l = nn.Parameter(torch.empty(l_dim))
 
@@ -87,10 +95,10 @@ class BiAttentionBlock(nn.Module):
             self.gamma_v.fill_(self.init_values)
             self.gamma_l.fill_(self.init_values)
 
-    def forward(self, v, l, mask_v=None, mask_l=None):
+    def forward(self, v, l, mask_v=None, mask_l=None, generator=None):
         v = self.layer_norm_v(v)
         l = self.layer_norm_l(l)
-        delta_v, delta_l = self.attn(v, l, mask_v=mask_v, mask_l=mask_l)
-        v = v + self.gamma_v * delta_v
-        l = l + self.gamma_l * delta_l
+        delta_v, delta_l = self.attn(v, l, mask_v=mask_v, mask_l=mask_l, generator=generator)
+        v = v + drop_path(self.gamma_v * delta_v, self.drop_path, generator)
+        l = l + drop_path(self.gamma_l * delta_l, self.drop_path, generator)
         return v.to(delta_v.dtype), l.to(delta_l.dtype)

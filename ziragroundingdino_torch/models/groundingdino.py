@@ -1,12 +1,14 @@
-"""GroundingDINO with ZiRa (`dualzerorepbranchgroundingdino`), the port of the
-serving path of the JAX package's `models/groundingdino.py`.
+"""GroundingDINO with ZiRa (`dualzerorepbranchgroundingdino`), the port of
+the JAX package's `models/groundingdino.py` for this preset.
 
 Forward I/O as in the JAX package: NHWC pixels (normalized f32, or uint8
 normalized on the device) + validity mask [B, H, W] True = valid, and a text
 batch (`input_ids`, `text_token_mask`, `position_ids`,
 `text_self_attention_masks`) from `text.tokenizer`. `pred_logits` are
 token-level [B, Q, max_text_len]; per-category logits come from
-`text.masks.recover_to_cls_logits`.
+`text.masks.recover_to_cls_logits`. `forward(..., train=True)` runs the ZiRa
+branches and adds what the criterion needs (`groundingdino.py:407-439` of
+the JAX package); a `generator` turns dropout on.
 
 Module and parameter names follow the reference checkpoint, so its
 `state_dict` keys are this module's keys: `bert.*`, `feat_map`,
@@ -18,7 +20,7 @@ bbox_embed`) and the parameter-free `class_embed`.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
@@ -26,11 +28,12 @@ from torch import nn
 from ziragroundingdino_torch.config import GroundingDINOConfig
 from ziragroundingdino_torch.models.bert import BertEncoder
 from ziragroundingdino_torch.models.heads import ContrastiveEmbed
-from ziragroundingdino_torch.models.layers import MLP, Linear, inverse_sigmoid
+from ziragroundingdino_torch.models.layers import MLP, Linear
 from ziragroundingdino_torch.models.position_encoding import position_embedding_sine_hw
 from ziragroundingdino_torch.models.swin import SwinTransformer, interpolate_mask_nearest
 from ziragroundingdino_torch.models.transformer import Transformer
 from ziragroundingdino_torch.models.zira import Conv2d, RepZeroConv, RepZeroLinear
+from ziragroundingdino_torch.ops.box_ops import inverse_sigmoid
 
 
 class InputProj(nn.Sequential):
@@ -98,7 +101,16 @@ class GroundingDINO(nn.Module):
         pixels: torch.Tensor,  # [B, H, W, 3] normalized f32, or uint8
         mask: torch.Tensor,  # [B, H, W] bool True = valid
         text: Dict[str, torch.Tensor],
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> Dict[str, Any]:
+        """Detections: `pred_logits` [B, Q, max_text_len] f32, `pred_boxes`
+        [B, Q, 4] cxcywh, `encoded_text`, `topk_idx`. With `train`, the ZiRa
+        branches run beside the frozen ones, and the output adds
+        `aux_outputs` (the first dec_layers - 1 decoder layers, with
+        cfg.aux_loss), `interm_outputs` (the two-stage heads) and
+        `adapter_losses` (the ZILs). `generator` (on the input's device)
+        draws dropout and stochastic depth; None means none."""
         cfg = self.cfg
         cd = cfg.torch_dtype
         if pixels.dtype == torch.uint8:
@@ -108,8 +120,14 @@ class GroundingDINO(nn.Module):
 
         # ---- text path
         bert_out = self.bert(text["input_ids"], text["text_self_attention_masks"],
-                             position_ids=text["position_ids"])
-        encoded_text = self.feat_map(bert_out) + self.rep_linear_adapter(bert_out)
+                             position_ids=text["position_ids"], generator=generator)
+        if train:
+            # the ZIL is a mean over valid tokens (`zira.py:35-51` of the JAX package)
+            rep_out, loss_linear = self.rep_linear_adapter.forward_train(
+                bert_out, mask=text["text_token_mask"])
+        else:
+            rep_out = self.rep_linear_adapter(bert_out)
+        encoded_text = self.feat_map(bert_out) + rep_out
         text_dict = {
             "encoded_text": encoded_text,
             "text_token_mask": text["text_token_mask"],
@@ -118,15 +136,22 @@ class GroundingDINO(nn.Module):
         }
 
         # ---- image path
-        feats = self.backbone[0](pixels, mask)
+        feats = self.backbone[0](pixels, mask, generator)
         srcs, masks_lvl, poss = [], [], []
+        loss_conv = torch.zeros((), dtype=torch.float32, device=pixels.device)
         for lvl in range(cfg.num_feature_levels):
             if lvl < len(feats):
                 src_in, m_lvl = feats[lvl]
             else:
                 src_in = feats[-1][0] if lvl == len(feats) else srcs[-1]
                 m_lvl = None
-            src = self.input_proj[lvl](src_in, self.input_proj_conv_adapter[lvl](src_in))
+            adapter = self.input_proj_conv_adapter[lvl]
+            if train:
+                extra, zil = adapter.forward_train(src_in)
+                loss_conv = loss_conv + zil  # summed over levels (`groundingdino.py:305-306`)
+            else:
+                extra = adapter(src_in)
+            src = self.input_proj[lvl](src_in, extra)
             if m_lvl is None:
                 m_lvl = interpolate_mask_nearest(mask, src.shape[1], src.shape[2])
             srcs.append(src)
@@ -137,15 +162,29 @@ class GroundingDINO(nn.Module):
             ).to(cd))
 
         class_embed = self.class_embed[0]
-        tr = self.transformer(srcs, masks_lvl, poss, text_dict, class_embed)
+        tr = self.transformer(srcs, masks_lvl, poss, text_dict, class_embed, generator, train)
         text_dict = dict(text_dict, encoded_text=tr["memory_text"])
 
-        # anchor-update box output of the last layer (`groundingdino.py:369-376`)
-        hs = tr["hidden_states"][-1]
-        delta = self.bbox_embed[-1](hs.float())
-        return {
-            "pred_logits": class_embed(hs, text_dict),  # [B, Q, max_text_len] f32
-            "pred_boxes": torch.sigmoid(delta + inverse_sigmoid(tr["references"][-2])),
+        # anchor-update box outputs (`groundingdino.py:369-376`): layer i
+        # refines the references it was given, refs[i]
+        hs, refs = tr["hidden_states"], tr["references"]
+        layers = range(len(hs)) if train else (len(hs) - 1,)
+        boxes = [torch.sigmoid(self.bbox_embed[i](hs[i].float()) + inverse_sigmoid(refs[i]))
+                 for i in layers]
+        logits = [class_embed(hs[i], text_dict) for i in layers]
+        out = {
+            "pred_logits": logits[-1],  # [B, Q, max_text_len] f32
+            "pred_boxes": boxes[-1],
             "encoded_text": text_dict["encoded_text"],
             "topk_idx": tr["topk_idx"],
         }
+        if not train:
+            return out
+        if cfg.aux_loss:
+            out["aux_outputs"] = [{"pred_logits": c, "pred_boxes": b}
+                                  for c, b in zip(logits[:-1], boxes[:-1])]
+            out["interm_outputs"] = {"pred_logits": class_embed(tr["hs_enc"], text_dict),
+                                     "pred_boxes": tr["ref_enc"]}
+        out["adapter_losses"] = {"loss_linear_adapter": loss_linear,
+                                 "loss_conv_adapter": loss_conv}
+        return out

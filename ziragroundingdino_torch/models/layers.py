@@ -5,6 +5,10 @@ True = attend / valid; parameters in float32 and matmuls in a compute dtype
 given per module (a bf16 matmul casts its f32 weight per call, as the JAX
 `Dense` does); LayerNorm and softmax in f32; `NEG_INF` finite.
 
+Dropout and stochastic depth (`dropout`, `drop_path`) draw their masks from
+an explicit `torch.Generator` passed down the forward; with none they are
+the identity, as the JAX package's `deterministic=True`.
+
 Parameters are created empty and filled by `init_weights(model, generator)`
 from an explicit `torch.Generator`: every module that owns parameters
 either has an `init_weights(generator)` method or is a norm layer, and any
@@ -32,6 +36,29 @@ def _uniform_(t: torch.Tensor, bound: float, gen: torch.Generator) -> None:
 
 def xavier_uniform_(t: torch.Tensor, fan_in: int, fan_out: int, gen: torch.Generator) -> None:
     _uniform_(t, math.sqrt(6.0 / (fan_in + fan_out)), gen)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout (kept entries scaled by 1 / (1 - rate), as the JAX
+    package's `Dropout`) with its mask drawn from `generator`; the identity
+    when `generator` is None or `rate` is 0."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0).to(x.dtype)
+
+
+def drop_path(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Stochastic depth (`DropPath`, `models/layers.py:114-128` of the JAX
+    package, timm semantics): the whole residual branch of a sample is
+    dropped, kept ones scaled by 1 / (1 - rate); identity as `dropout`."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0).to(x.dtype)
 
 
 class Linear(nn.Linear):
@@ -127,13 +154,14 @@ class MultiHeadAttention(nn.Module):
     Scaled logits in f32, masks as `NEG_INF`, f32 softmax."""
 
     def __init__(self, embed_dim: int, num_heads: int,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None, dropout: float = 0.0):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} not divisible by {num_heads} heads")
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.compute_dtype = compute_dtype
+        self.dropout = dropout
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * embed_dim))
         self.out_proj = Linear(embed_dim, embed_dim, compute_dtype=compute_dtype)
@@ -150,6 +178,7 @@ class MultiHeadAttention(nn.Module):
         value: torch.Tensor,  # [B, Tk, E]
         attn_mask: Optional[torch.Tensor] = None,  # [B, Tq, Tk] bool, True=attend
         key_padding_mask: Optional[torch.Tensor] = None,  # [B, Tk] bool, True=valid
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         e, h = self.embed_dim, self.num_heads
         hd = e // h
@@ -170,7 +199,7 @@ class MultiHeadAttention(nn.Module):
             logits = logits.masked_fill(~attn_mask[:, None, :, :], NEG_INF)
         if key_padding_mask is not None:
             logits = logits.masked_fill(~key_padding_mask[:, None, None, :], NEG_INF)
-        probs = torch.softmax(logits, dim=-1).to(cd)
+        probs = dropout(torch.softmax(logits, dim=-1).to(cd), self.dropout, generator)
         out = torch.matmul(probs, v)
         out = out.transpose(1, 2).reshape(query.shape[0], query.shape[1], e)
         return self.out_proj(out)
@@ -214,12 +243,6 @@ def gen_sineembed_for_position(pos: torch.Tensor, num_feats: int = 128) -> torch
     if pos.shape[-1] == 2:
         return torch.cat((y, x), dim=-1)
     return torch.cat((y, x, embed(pos[..., 2]), embed(pos[..., 3])), dim=-1)
-
-
-def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
-    """`util/misc.py:704-709`: logit with clamping."""
-    x = x.clamp(0.0, 1.0)
-    return torch.log(x.clamp(min=eps) / (1.0 - x).clamp(min=eps))
 
 
 def activation_fn(name: str) -> Callable:

@@ -1,7 +1,10 @@
 """Swin Transformer backbone, the port of the JAX package's `models/swin.py`
 (reference `backbone/swin_transformer.py:501-760`): 4 stages of shifted-window
 attention with relative position bias, patch merging between stages and
-per-stage output LayerNorms on `out_indices`. NHWC throughout.
+per-stage output LayerNorms on `out_indices`. NHWC throughout. Stochastic
+depth (rates `linspace(0, drop_path_rate)` over the blocks, `swin.py:276` of
+the JAX package) draws from the generator given to `forward`, and is off
+without one.
 
 Module names follow the reference checkpoint (`backbone.0.layers.1.blocks.0.
 attn.qkv.weight`). The relative-position index and the shift mask are static
@@ -20,7 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ziragroundingdino_torch.config import SwinConfig
-from ziragroundingdino_torch.models.layers import LayerNorm, Linear
+from ziragroundingdino_torch.models.layers import LayerNorm, Linear, drop_path
 
 
 @functools.lru_cache(maxsize=None)
@@ -127,17 +130,20 @@ class SwinBlock(nn.Module):
     """One (shifted-)window transformer block (`swin_transformer.py:177-293`)."""
 
     def __init__(self, dim: int, num_heads: int, window: int, shift: int, mlp_ratio: float,
-                 qkv_bias: bool, compute_dtype: Optional[torch.dtype] = None):
+                 qkv_bias: bool, compute_dtype: Optional[torch.dtype] = None,
+                 drop_path: float = 0.0):
         super().__init__()
         self.window = window
         self.shift = shift
+        self.drop_path = drop_path
         self.norm1 = LayerNorm(dim)
         self.attn = WindowAttention(dim, window, num_heads, qkv_bias, compute_dtype)
         self.norm2 = LayerNorm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), compute_dtype)
         self._tables = _DeviceTables()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         b, h, w, c = x.shape
         window, shift = self.window, self.shift
         shortcut = x
@@ -161,8 +167,8 @@ class SwinBlock(nn.Module):
         x = x.reshape(b, hp, wp, c)
         if shift > 0:
             x = torch.roll(x, shifts=(shift, shift), dims=(1, 2))
-        x = shortcut + x[:, :h, :w, :]
-        return x + self.mlp(self.norm2(x))
+        x = shortcut + drop_path(x[:, :h, :w, :], self.drop_path, generator)
+        return x + drop_path(self.mlp(self.norm2(x)), self.drop_path, generator)
 
 
 class PatchMerging(nn.Module):
@@ -189,10 +195,12 @@ class BasicLayer(nn.Module):
     def __init__(self, cfg: SwinConfig, stage: int, compute_dtype: Optional[torch.dtype]):
         super().__init__()
         dim = cfg.num_features[stage]
+        dpr = np.linspace(0.0, cfg.drop_path_rate, sum(cfg.depths))
+        first = sum(cfg.depths[:stage])
         self.blocks = nn.ModuleList(
             SwinBlock(dim, cfg.num_heads[stage], cfg.window_size,
                       0 if i % 2 == 0 else cfg.window_size // 2,
-                      cfg.mlp_ratio, cfg.qkv_bias, compute_dtype)
+                      cfg.mlp_ratio, cfg.qkv_bias, compute_dtype, float(dpr[first + i]))
             for i in range(cfg.depths[stage])
         )
         self.downsample = (PatchMerging(dim, compute_dtype)
@@ -262,7 +270,8 @@ class SwinTransformer(nn.Module):
         for s in cfg.out_indices:
             self.add_module(f"norm{s}", LayerNorm(cfg.num_features[s]))
 
-    def forward(self, pixels: torch.Tensor, mask: torch.Tensor
+    def forward(self, pixels: torch.Tensor, mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None
                 ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
         ps = self.cfg.patch_size
         if pixels.shape[1] % ps or pixels.shape[2] % ps:
@@ -271,7 +280,7 @@ class SwinTransformer(nn.Module):
         outs = []
         for stage, layer in enumerate(self.layers):
             for blk in layer.blocks:
-                x = blk(x)
+                x = blk(x, generator)
             if stage in self.cfg.out_indices:
                 y = getattr(self, f"norm{stage}")(x)
                 lvl_mask = interpolate_mask_nearest(mask, x.shape[1], x.shape[2])

@@ -7,7 +7,8 @@ query selection, the decoder layer, `CrossModalityDecoder` and
 
 Batch-first; masks True = valid; softmaxes in f32; the decoder FFN in f32 as
 in the reference's autocast-disabled region (`:1004`). MSDA goes straight to
-`ops.msda.ms_deform_attn`, which runs the CUDA kernel on the card.
+`ops.msda.ms_deform_attn`, which runs the CUDA kernels on the card. Dropout
+draws from the generator given to `forward`, and is off without one.
 """
 
 from __future__ import annotations
@@ -29,8 +30,8 @@ from ziragroundingdino_torch.models.layers import (
     activation_fn,
     gen_sineembed_for_position,
     get_sine_pos_embed,
-    inverse_sigmoid,
 )
+from ziragroundingdino_torch.ops.box_ops import inverse_sigmoid
 from ziragroundingdino_torch.ops.msda import ms_deform_attn
 
 SpatialShapes = Tuple[Tuple[int, int], ...]
@@ -135,15 +136,15 @@ class TextEnhancerLayer(nn.Module):
     def __init__(self, cfg: GroundingDINOConfig, compute_dtype: Optional[torch.dtype]):
         super().__init__()
         e = cfg.hidden_dim
-        self.self_attn = MultiHeadAttention(e, cfg.nheads // 2, compute_dtype)
+        self.self_attn = MultiHeadAttention(e, cfg.nheads // 2, compute_dtype, cfg.text_dropout)
         self.norm1 = LayerNorm(e)
         self.linear1 = Linear(e, cfg.dim_feedforward // 2, compute_dtype=compute_dtype)
         self.linear2 = Linear(cfg.dim_feedforward // 2, e, compute_dtype=compute_dtype)
         self.norm2 = LayerNorm(e)
 
-    def forward(self, text, attn_mask, pos):
+    def forward(self, text, attn_mask, pos, generator=None):
         q = text if pos is None else text + pos
-        attn = self.self_attn(q, q, text, attn_mask=attn_mask)
+        attn = self.self_attn(q, q, text, attn_mask=attn_mask, generator=generator)
         text = self.norm1(text + attn).to(attn.dtype)
         y = self.linear2(torch.relu(self.linear1(text)))
         return self.norm2(text + y).to(y.dtype)
@@ -235,18 +236,19 @@ class FeatureEnhancer(nn.Module):
         self.text_layers = nn.ModuleList(TextEnhancerLayer(cfg, compute_dtype) for _ in range(n))
         self.fusion_layers = nn.ModuleList(
             BiAttentionBlock(cfg.hidden_dim, cfg.hidden_dim, cfg.dim_feedforward // 2,
-                             cfg.nheads // 2, compute_dtype=compute_dtype)
+                             cfg.nheads // 2, compute_dtype=compute_dtype,
+                             dropout=cfg.fusion_dropout, drop_path=cfg.fusion_droppath)
             for _ in range(n))
 
     def forward(self, src, pos, spatial_shapes, valid_ratios, key_padding_mask, text,
-                text_token_mask, text_self_attention_masks, position_ids):
+                text_token_mask, text_self_attention_masks, position_ids, generator=None):
         reference_points = encoder_reference_points(spatial_shapes, valid_ratios)
         pos_text = get_sine_pos_embed(position_ids[..., None].float(),
                                       num_pos_feats=self.cfg.hidden_dim,
                                       exchange_xy=False).to(src.dtype)
         for fusion, text_layer, layer in zip(self.fusion_layers, self.text_layers, self.layers):
-            src, text = fusion(src, text, key_padding_mask, text_token_mask)
-            text = text_layer(text, text_self_attention_masks, pos_text)
+            src, text = fusion(src, text, key_padding_mask, text_token_mask, generator)
+            text = text_layer(text, text_self_attention_masks, pos_text, generator)
             src = layer(src, pos, reference_points, spatial_shapes, key_padding_mask)
         return src, text
 
@@ -259,9 +261,9 @@ class DeformableDecoderLayer(nn.Module):
         super().__init__()
         e = cfg.hidden_dim
         self.compute_dtype = compute_dtype
-        self.self_attn = MultiHeadAttention(e, cfg.nheads, compute_dtype)
+        self.self_attn = MultiHeadAttention(e, cfg.nheads, compute_dtype, cfg.dropout)
         self.norm2 = LayerNorm(e)
-        self.ca_text = MultiHeadAttention(e, cfg.nheads, compute_dtype)
+        self.ca_text = MultiHeadAttention(e, cfg.nheads, compute_dtype, cfg.dropout)
         self.catext_norm = LayerNorm(e)
         self.cross_attn = MSDeformAttn(e, cfg.nheads, cfg.num_feature_levels, cfg.dec_n_points,
                                        compute_dtype)
@@ -272,11 +274,12 @@ class DeformableDecoderLayer(nn.Module):
         self.act = activation_fn(cfg.transformer_activation)
 
     def forward(self, tgt, query_pos, reference_points_input, memory, memory_mask,
-                spatial_shapes, text, text_token_mask, self_attn_mask=None):
+                spatial_shapes, text, text_token_mask, self_attn_mask=None, generator=None):
         q = tgt + query_pos
-        attn = self.self_attn(q, q, tgt, attn_mask=self_attn_mask)
+        attn = self.self_attn(q, q, tgt, attn_mask=self_attn_mask, generator=generator)
         tgt = self.norm2(tgt + attn).to(attn.dtype)
-        attn = self.ca_text(tgt + query_pos, text, text, key_padding_mask=text_token_mask)
+        attn = self.ca_text(tgt + query_pos, text, text, key_padding_mask=text_token_mask,
+                            generator=generator)
         tgt = self.catext_norm(tgt + attn).to(attn.dtype)
         attn = self.cross_attn(tgt + query_pos, memory, reference_points_input, spatial_shapes,
                                memory_mask)
@@ -304,7 +307,7 @@ class CrossModalityDecoder(nn.Module):
         self.bbox_embed: Optional[nn.ModuleList] = None  # set by the parent model
 
     def forward(self, tgt, refpoints_unsigmoid, memory, memory_mask, spatial_shapes,
-                valid_ratios, text, text_token_mask):
+                valid_ratios, text, text_token_mask, generator=None):
         cfg = self.cfg
         output = tgt
         reference_points = torch.sigmoid(refpoints_unsigmoid.float())
@@ -317,7 +320,7 @@ class CrossModalityDecoder(nn.Module):
                                                     num_feats=cfg.hidden_dim // 2)
             query_pos = self.ref_point_head(query_sine.to(self.compute_dtype or output.dtype))
             output = layer(output, query_pos, ref_input, memory, memory_mask, spatial_shapes,
-                           text, text_token_mask)
+                           text, text_token_mask, generator=generator)
             delta = self.bbox_embed[i](output.float()).float()
             new_ref = torch.sigmoid(delta + inverse_sigmoid(reference_points))
             reference_points = new_ref.detach()
@@ -348,9 +351,11 @@ class Transformer(nn.Module):
         with torch.no_grad():
             self.level_embed.normal_(0.0, 1.0, generator=gen)
 
-    def forward(self, srcs, masks, pos_embeds, text_dict, enc_class_embed):
+    def forward(self, srcs, masks, pos_embeds, text_dict, enc_class_embed, generator=None,
+                train=False):
         """srcs/pos_embeds per level [B, h, w, E], masks per level [B, h, w]
-        True = valid; enc_class_embed: (memory, text_dict) -> [B, S, T]."""
+        True = valid; enc_class_embed: (memory, text_dict) -> [B, S, T].
+        With `train`, the output adds the two-stage heads' inputs."""
         cfg = self.cfg
         b = srcs[0].shape[0]
         cd = self.compute_dtype or srcs[0].dtype
@@ -370,7 +375,7 @@ class Transformer(nn.Module):
         memory, memory_text = self.encoder(
             src_flat, pos_flat, spatial_shapes, valid_ratios, mask_flat,
             text_dict["encoded_text"], text_dict["text_token_mask"],
-            text_dict["text_self_attention_masks"], text_dict["position_ids"])
+            text_dict["text_self_attention_masks"], text_dict["position_ids"], generator)
         text_dict = dict(text_dict, encoded_text=memory_text)
 
         # two-stage query selection (`transformer_for_adapter.py:301-344`)
@@ -381,14 +386,25 @@ class Transformer(nn.Module):
         enc_coords = self.enc_out_bbox_embed(output_memory.float()).float() + output_proposals
         topk_idx = select_topk(enc_logits.amax(-1), cfg.num_queries)
 
-        refpoint_embed = torch.gather(enc_coords, 1, topk_idx[..., None].expand(-1, -1, 4))
+        # the decoder starts from detached anchors
+        # (`transformer_for_adapter.py:331`, `transformer.py:555` of the JAX
+        # package); only the encoder-output heads (`hs_enc`, `ref_enc`) carry
+        # the two-stage losses back into the encoder
+        refpoint_undetached = torch.gather(enc_coords, 1, topk_idx[..., None].expand(-1, -1, 4))
         tgt = self.tgt_embed.weight[None].expand(b, -1, -1).to(cd)
         intermediate, ref_points = self.decoder(
-            tgt, refpoint_embed, memory, mask_flat, spatial_shapes, valid_ratios,
-            text_dict["encoded_text"], text_dict["text_token_mask"])
-        return {
+            tgt, refpoint_undetached.detach(), memory, mask_flat, spatial_shapes, valid_ratios,
+            text_dict["encoded_text"], text_dict["text_token_mask"], generator)
+        out = {
             "hidden_states": intermediate,  # list of [B, Q, E]
             "references": ref_points,  # list of [B, Q, 4] sigmoided
             "memory_text": text_dict["encoded_text"],
             "topk_idx": topk_idx,  # [B, Q] memory positions chosen as queries
         }
+        if train:
+            # two-stage heads' inputs: the selected encoder outputs [B, Q, E]
+            # and their boxes [B, Q, 4], sigmoided
+            e = output_memory.shape[-1]
+            out["hs_enc"] = torch.gather(output_memory, 1, topk_idx[..., None].expand(-1, -1, e))
+            out["ref_enc"] = torch.sigmoid(refpoint_undetached)
+        return out

@@ -1,17 +1,20 @@
-"""ZiRa dual-branch modules (arXiv 2403.01680), the eval forward of
-`RepZeroLinear` and `RepZeroConv` from the JAX package's `models/zira.py`
-(reference `groundingdino_dual_zero_rep_branch.py:62-135`).
+"""ZiRa dual-branch modules (arXiv 2403.01680), `RepZeroLinear` and
+`RepZeroConv` from the JAX package's `models/zira.py` (reference
+`groundingdino_dual_zero_rep_branch.py:62-135`).
 
 Each holds a trainable branch (`weight`/`bias`, init 1e-8) scaled by a
 learnable scalar (`scaling`, init 0.1) and a zero-init freeze branch
 (`freeze_linear` / `freeze_conv`) that accumulates merged past-task deltas.
-Serving runs the freeze branch only (`:94-95,126-127`); the branch and the
-merge (`rep_merge`) belong to training and the task lifecycle.
+Serving (`forward`) runs the freeze branch only (`:94-95,126-127`).
+Training (`forward_train`) runs ``freeze(x) + scaling * branch(x)`` and
+returns the zero-interference loss ZIL = SmoothL1(branch_out, 0) +
+SmoothL1(out, 0) beside it (`:87-95,119-127`). The merge (`rep_merge`)
+belongs to the task lifecycle.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -22,6 +25,21 @@ from ziragroundingdino_torch.models.layers import Linear
 ZERO_VALUE = 1e-8
 LAN_SCALE = 0.1
 VIS_SCALE = 0.1
+
+
+def smooth_l1_to_zero(x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """torch's SmoothL1Loss(x, 0) with beta 1, in f32: the mean over every
+    element, or with `mask` ([B, T] against x [B, T, D]) over the valid
+    positions only (`_masked_mean`, `zira.py:35-51` of the JAX package: the
+    reference's batch-1 ZIL over unpadded tokens)."""
+    ax = x.float().abs()
+    per = torch.where(ax < 1.0, 0.5 * ax * ax, ax - 0.5)
+    if mask is None:
+        return per.mean()
+    m = mask.to(per.dtype)
+    while m.dim() < per.dim():
+        m = m[..., None]
+    return (per * m).sum() / m.expand(per.shape).sum().clamp(min=1.0)
 
 
 def conv_nhwc(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
@@ -87,6 +105,15 @@ class RepZeroLinear(nn.Module):
         """Eval forward: the freeze branch."""
         return self.freeze_linear(x)
 
+    def forward_train(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Train forward: (freeze + scaling * branch, ZIL); `mask` [B, T]
+        restricts the ZIL to valid tokens."""
+        cd = self.freeze_linear.compute_dtype or x.dtype
+        branch = self.scaling.to(cd) * F.linear(x.to(cd), self.weight.to(cd), self.bias.to(cd))
+        out = branch + self.freeze_linear(x)
+        return out, smooth_l1_to_zero(branch, mask) + smooth_l1_to_zero(out, mask)
+
 
 class RepZeroConv(nn.Module):
     """Conv version (NHWC): kernel 1 (stride 1) or 3 (stride 2, pad 1), the
@@ -113,3 +140,13 @@ class RepZeroConv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Eval forward: the freeze branch."""
         return self.freeze_conv(x)
+
+    def forward_train(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Train forward: (freeze + scaling * branch, ZIL), the ZIL a plain
+        mean over the whole (padded) map."""
+        fc = self.freeze_conv
+        cd = fc.compute_dtype or x.dtype
+        branch = self.scaling.to(cd) * conv_nhwc(x.to(cd), self.weight.to(cd), self.bias.to(cd),
+                                                 fc.stride[0], fc.padding[0])
+        out = branch + fc(x)
+        return out, smooth_l1_to_zero(branch) + smooth_l1_to_zero(out)

@@ -3,8 +3,8 @@
 Every `csrc/<name>.cu` becomes its own shared library with a plain C
 interface, compiled for Hopper (`sm_90a`) at first use into `build/
 torch_kernels/` at the root of the checkout (listed in `.gitignore`). The
-library's file name carries a hash of its source, so an edited source is
-rebuilt and a stale build is never loaded; nvcc's log (with `ptxas -v`)
+library's file name carries a hash of its source and of the headers in
+`csrc/`, so an edited source is rebuilt and a stale build is never loaded; nvcc's log (with `ptxas -v`)
 sits beside it under the same name. `build_all()` starts one nvcc per
 source, all at once, and waits for them.
 """
@@ -42,7 +42,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
