@@ -12,7 +12,8 @@ Phases, in order (any failure raises, and the script exits non-zero):
      card at the encoder shape (Q = S = 20197 at 800x1216), the decoder shape
      (Q = 900), a tail shape (Q = 901: the last block's tile is ragged), an
      edge shape (B = 2, locations exactly 0, exactly 1 and far outside) and a
-     ragged shape (D = 16, B = 2, odd levels, locations in [-0.1, 1.1]), f32
+     ragged shape (D = 16, B = 2, odd levels, locations in [-0.1, 1.1]), a
+     hot shape (Q = 4096, every sample of level 3 in one cell), f32
      and bf16 value, with timings (CUDA events, median of 20): `ms`, the
      call time (events around the Python call, so the host's time before
      the launch counts, as the first slice timed it) and `device_ms` (a
@@ -20,8 +21,15 @@ Phases, in order (any failure raises, and the script exits non-zero):
      counts); at the encoder shape also the device time with L2 flushed
      before every launch; the wrapper's host time per call;
   3b. the same for `msda_backward` against `ms_deform_attn_backward_plain`
-     (all three gradients), with the L2 gather and the f32 atomic traffic
-     beside the bytes bound;
+     (all three gradients), both paths at every shape (the binned passes,
+     which calls from `BINNED_MIN_SAMPLES` samples on take, and the
+     single-pass kernel of smaller calls; each forced through
+     `BINNED_MIN_SAMPLES`), with what the binned design moves (L2 gather,
+     records, g re-reads, flush atomics; modelled, so only in the log) beside
+     the bytes bound, at the encoder and decoder shapes one call's launches
+     (count, scan, records, main, accumulate, memset, cast) under
+     torch.profiler, and both paths' device time at Q between the decoder's
+     and the encoder's (where the binned passes overtake the single pass);
   4. whole model, card vs CPU: a reduced-depth f32 model (tiny Swin/BERT,
      2 + 2 layers) with the same seeded weights on both;
   4b. the same model's train step, card vs CPU: every loss and every
@@ -36,7 +44,9 @@ Phases, in order (any failure raises, and the script exits non-zero):
   5b. train path: the same model takes 4 `train_step`s on that image with a
      4-category caption and 5 seeded boxes, dropout at the preset's rates
      from a CUDA generator: finite losses, 12 `msda_forward` and 12
-     `msda_backward` launches per step, frozen weights unchanged, every ZiRa
+     `msda_backward` launches per step (the 6 encoder calls by the binned
+     passes, the 6 decoder calls by the single-pass kernel), frozen weights
+     unchanged, every ZiRa
      branch moved; ms per step and peak memory; with --profile, a step's
      device busy time, idle share and top kernels;
   6. result: a `kernels` JSON line, the nvidia-smi line, and last
@@ -49,6 +59,7 @@ next to it; without either it fails before printing a result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import pathlib
 import re
@@ -66,6 +77,7 @@ ENC_SHAPES = ((100, 152), (50, 76), (25, 38), (13, 19))  # levels at 800x1216
 ENC_S = sum(h * w for h, w in ENC_SHAPES)  # 20197
 RAGGED_SHAPES = ((7, 9), (5, 3), (2, 11), (1, 1))
 EDGES = (0.0, 1.0, -7.5, 8.25)  # locations of the "edges" case, beside uniform ones
+HOT_CELL = (6, 9)  # (y, x) of the level-3 cell of the "hot" case
 L2_FLUSH_BYTES = 128 * 2**20  # written between launches for a cold-L2 time (L2: 50 MB)
 SPIN_CYCLES = 1_000_000  # ~0.5 ms at the H100's clock: the host enqueues a timed call meanwhile
 F32_TOL = 1e-5  # times max(1, max |plain|): f32 summation order over L*P*4 terms
@@ -146,7 +158,9 @@ def host_us(fn, n: int = 200) -> float:
 
 def msda_inputs(shapes, b, q, h, d, dtype, span=(0.0, 1.0), seed=0):
     """Seeded value, loc and attn; loc uniform in span = (lo, hi), or with
-    span = "edges" a fifth each of EDGES' four values, the rest in [0, 1]."""
+    span = "edges" a fifth each of EDGES' four values, the rest in [0, 1], or
+    with span = "hot" uniform in [0, 1] but for the last level's, all in
+    one cell."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     s = sum(hh * ww for hh, ww in shapes)
     n_levels, n_points = len(shapes), 4
@@ -157,6 +171,15 @@ def msda_inputs(shapes, b, q, h, d, dtype, span=(0.0, 1.0), seed=0):
         pick = torch.randint(0, len(EDGES) + 1, size, device="cuda", generator=g)
         table = torch.tensor(EDGES + (0.0,), device="cuda")
         loc = torch.where(pick < len(EDGES), table[pick], loc)
+    elif span == "hot":
+        # every sample of the last level inside one cell (HOT_CELL, y and x;
+        # x = loc * w - 0.5 in [x + 0.05, x + 0.95]): the backward's bin of
+        # that cell splits over many chunks
+        h_l, w_l = shapes[-1]
+        cy, cx = HOT_CELL
+        xy = torch.tensor([cx + 0.55, cy + 0.55], device="cuda")
+        loc[:, :, :, -1] = (xy + 0.9 * loc[:, :, :, -1]) / torch.tensor(
+            [w_l, h_l], device="cuda")
     else:
         lo, hi = span
         loc = lo + (hi - lo) * loc
@@ -186,23 +209,81 @@ def msda_backward_bound(value, loc, attn, grad_out):
     """Least time for the backward: value, loc, attn and grad_out read once,
     the function's outputs written once (d_value in the value's dtype, d_loc
     and d_attn in f32), at the memory rate, or its arithmetic at the f32 rate
-    (per corner 2 flops per channel for the dot with g and 2 for the atomic's
-    product and add, plus ~40 per sample). Also returns, beside the bound,
-    the bytes of the corner gather (from L2), of the f32 atomic adds into
-    d_value (4 corners x D x 4 B per sample) and of the kernel's own f32
-    d_value accumulator (zeroed, added into, read by the cast once each)."""
+    (per corner 2 flops per channel for the dot with g and 2 for d_value's
+    product and add, plus ~40 per sample)."""
     nbytes = sum(t.numel() * t.element_size() for t in (value, loc, attn, grad_out))
     nbytes += value.numel() * value.element_size() + 4 * (loc.numel() + attn.numel())
     b, q, h, n_levels, n_points, _ = loc.shape
     d = value.shape[-1]
-    samples = b * q * h * n_levels * n_points
-    flops = samples * (4 * 4 * d + 40)
-    gather_bytes = samples * 4 * d * value.element_size()
-    atomic_bytes = samples * 4 * d * 4
-    accumulator_bytes = 4 * value.numel()
+    flops = b * q * h * n_levels * n_points * (4 * 4 * d + 40)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
-    return (max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes,
-            gather_bytes, atomic_bytes, accumulator_bytes)
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes
+
+
+def binned_traffic(value, shapes, loc, grad_out) -> dict:
+    """What the binned passes' design moves for these inputs, modelled with
+    the plain copy of the bins (`tests/torch_msda_bins.py`) on the card, for
+    the log beside the bound: the main pass's corner gather (from L2), the
+    records (16 bytes per binned sample, written and read), the accumulate
+    pass's g re-reads (one row per record), its flush's float4 atomic adds
+    (at most every window cell inside its level, per chunk: a cell whose sum
+    is 0 adds nothing) with their count, and the f32 d_value accumulator
+    (zeroed, added into, read by the cast once each)."""
+    import importlib.util
+
+    # by path: a package named `tests` elsewhere on sys.path may shadow this one
+    path = pathlib.Path(__file__).resolve().parent / "tests" / "torch_msda_bins.py"
+    spec = importlib.util.spec_from_file_location("torch_msda_bins", path)
+    bins_ref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bins_ref)
+    bin_plan, chunk_table = bins_ref.bin_plan, bins_ref.chunk_table
+    sample_bins, tile_region = bins_ref.sample_bins, bins_ref.tile_region
+
+    b, q, h, n_levels, n_points, _ = loc.shape
+    d = value.shape[-1]
+    plan = bin_plan(shapes)
+    bins, _ = sample_bins(loc, shapes, plan)
+    counts = torch.bincount(bins[bins >= 0], minlength=b * h * plan.n_tiles)
+    table = chunk_table(counts)
+    cells = torch.tensor([(y1 - y0) * (x1 - x0) for _, y0, y1, x0, x1 in
+                          (tile_region(plan, shapes, t, window=True)
+                           for t in range(plan.n_tiles))], device=loc.device)
+    flush_cells = cells[table[:, 0] % plan.n_tiles].sum().item()
+    records = counts.sum().item()
+    samples = b * q * h * n_levels * n_points
+    return dict(l2_gather_mb=samples * 4 * d * value.element_size() / 1e6,
+                records_mb=2 * 16 * records / 1e6,
+                g_reread_mb=records * d * grad_out.element_size() / 1e6,
+                flush_atomic_mb_at_most=flush_cells * d * 4 / 1e6,
+                flush_atomics_at_most=flush_cells * d // 4, chunks=len(table),
+                f32_accumulator_mb=4 * value.numel() / 1e6)
+
+
+def launch_breakdown(fn) -> dict:
+    """The device time of each launch of one call of `fn` under
+    torch.profiler, labelled by pass; returns {label: ms}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                      and not getattr(e, "is_user_annotation", False)),
+                     key=lambda e: e.time_range.start)
+    labels = (("msda_bin_count", "count"), ("msda_bin_scan", "scan"),
+              ("msda_bin_records", "records"), ("msda_backward_main", "main"),
+              ("msda_backward_accumulate", "accumulate"), ("Memset", "memset"),
+              ("FillFunctor", "memset"))
+    out = {}
+    for e in kernels:
+        label = next((lab for key, lab in labels if key in e.name), "cast")
+        ms = e.time_range.elapsed_us() / 1e3
+        out[label] = out.get(label, 0.0) + ms
+        log(f"  {label:10s} {ms * 1e3:9.2f} us  {e.name[:100]}")
+    return out
 
 
 def check_ptxas(name: str, text: str) -> int:
@@ -222,13 +303,18 @@ def check_ptxas(name: str, text: str) -> int:
         if m and rows:
             rows[-1][-1] = int(m.group(1))
     for fn, frame, stores, loads, regs in rows:
-        t = re.search(r"kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELi(\d+)E", fn or "")
-        label = (f"<{'f32' if t.group(1) == 'f' else 'bf16'}, D={t.group(2)}, "
-                 f"{'L=P=4' if t.group(3) != '0' else 'generic L, P'}>" if t else fn)
-        log(f"  {name}{label}: {regs} registers, {frame} bytes stack frame, "
+        # ..._GLOBAL__N_..._msda_<file>_cu_...<len><kernel>I<type>Li<D>E[Li<L>ELi<P>E]E...
+        names = re.findall(r"msda_[a-z_]+", fn or "")
+        kernel = names[-1] if names else fn
+        t = re.search(r"I(f|13__nv_bfloat16)Li(\d+)E(?:Li(\d+)ELi\d+E)?", fn or "")
+        label = kernel + (f"<{'f32' if t.group(1) == 'f' else 'bf16'}, D={t.group(2)}"
+                          + ("" if t.group(3) is None else
+                             ", L=P=4" if t.group(3) != "0" else ", generic L, P") + ">"
+                          if t else "")
+        log(f"  {name}: {label}: {regs} registers, {frame} bytes stack frame, "
             f"{stores} bytes spill stores, {loads} bytes spill loads")
         if frame or stores or loads:
-            raise AssertionError(f"{name}{label} has a stack frame or spills")
+            raise AssertionError(f"{name}: {label} has a stack frame or spills")
     return len(rows)
 
 
@@ -239,7 +325,9 @@ KERNEL_CASES = [
     ("tail", ENC_SHAPES, 1, 901, 8, 32, (0.0, 1.0)),
     ("edges", ENC_SHAPES, 2, 901, 8, 32, "edges"),
     ("ragged", RAGGED_SHAPES, 2, 37, 3, 16, (-0.1, 1.1)),
+    ("hot", ENC_SHAPES, 1, 4096, 8, 32, "hot"),
 ]
+CROSSOVER_Q = (1800, 3600, 7200, 14400)  # phase 3b's sweep of both backward paths
 
 
 def phase_kernels(msda_forward, ms_deform_attn_plain):
@@ -290,10 +378,25 @@ def phase_kernels(msda_forward, ms_deform_attn_plain):
     return record
 
 
-def phase_backward(msda_backward, ms_deform_attn_backward_plain):
-    """Backward kernel vs plain backward at phase 3's shapes; returns the
-    bf16 measurements at the encoder and decoder shapes for the kernels
-    line."""
+@contextlib.contextmanager
+def backward_path(msda_cuda, binned: bool):
+    """`msda_backward` forced onto one path: the binned passes (from 0
+    samples on) or the single-pass kernel (never binned)."""
+    keep = msda_cuda.BINNED_MIN_SAMPLES
+    msda_cuda.BINNED_MIN_SAMPLES = 0 if binned else 2**62
+    try:
+        yield
+    finally:
+        msda_cuda.BINNED_MIN_SAMPLES = keep
+
+
+def phase_backward(msda_cuda, ms_deform_attn_backward_plain):
+    """Backward kernel vs plain backward at phase 3's shapes, both paths (the
+    binned passes and the single-pass kernel) at every shape; returns the
+    bf16 measurements at the encoder and decoder shapes by path for the
+    kernels line. The binned design's modelled traffic is logged beside the
+    bound, not returned."""
+    msda_backward = msda_cuda.msda_backward
     record = {}
     for name, shapes, b, q, h, d, span in KERNEL_CASES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -301,43 +404,62 @@ def phase_backward(msda_backward, ms_deform_attn_backward_plain):
             g = torch.randn(b, q, h * d, device="cuda",
                             generator=torch.Generator(device="cuda").manual_seed(1)).to(dtype)
             want = ms_deform_attn_backward_plain(value.float(), shapes, loc, attn, g.float())
-            got = msda_backward(value, shapes, loc, attn, g)
-            torch.cuda.synchronize()
-            errs = []
-            for gname, x, w in zip(("d_value", "d_loc", "d_attn"), got, want):
-                scale = max(w.abs().max().item(), 1e-30)
-                err = (x.float() - w).abs().max().item()
-                tol = BWD_TOL[dtype][gname] * scale
-                errs.append(f"{gname} {err:.3e} (scale {scale:.3e}, tol {tol:.3e})")
-                if not err <= tol:
-                    raise AssertionError(f"msda_backward disagrees with the plain backward at "
-                                         f"{name} {dtype}, {gname}: {err} > {tol}")
-                if gname == "d_value":
-                    d_value_err = err
-
-            def fn():
-                return msda_backward(value, shapes, loc, attn, g)
-
-            ms = time_ms(fn)
-            device_ms = time_ms(fn, spin=True)
             plain_ms = time_ms(lambda: ms_deform_attn_backward_plain(value, shapes, loc, attn, g),
                                n=5, warmup=1)
-            bound_ms, bound_by, nbytes, gather_bytes, atomic_bytes, acc_bytes = (
-                msda_backward_bound(value, loc, attn, g))
-            log(f"msda_backward {name} {str(dtype)[6:]} B={b} Q={q} H={h} D={d} max_abs_err: "
-                + "; ".join(errs) + f"; call_ms={ms:.4f} device_ms={device_ms:.4f} "
-                f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}, "
-                f"{nbytes / 1e6:.1f} MB) share_of_bound call={bound_ms / ms:.3f} "
-                f"device={bound_ms / device_ms:.3f} l2_gather={gather_bytes / 1e6:.1f} MB "
-                f"atomics={atomic_bytes / 1e6:.1f} MB "
-                f"({atomic_bytes / device_ms / 1e9:.2f} TB/s of atomic adds over device_ms) "
-                f"f32_accumulator={acc_bytes / 1e6:.1f} MB")
-            if dtype == torch.bfloat16 and name in ("encoder", "decoder"):
-                record[name] = dict(max_abs_err=d_value_err, ms=ms, device_ms=device_ms,
-                                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                                    l2_gather_mb=gather_bytes / 1e6,
-                                    atomic_mb=atomic_bytes / 1e6,
-                                    f32_accumulator_mb=acc_bytes / 1e6)
+            bound_ms, bound_by, nbytes = msda_backward_bound(value, loc, attn, g)
+            for binned in (True, False):
+                path = "binned" if binned else "single_pass"
+                with backward_path(msda_cuda, binned):
+                    got = msda_backward(value, shapes, loc, attn, g)
+                    torch.cuda.synchronize()
+                    errs = []
+                    for gname, x, w in zip(("d_value", "d_loc", "d_attn"), got, want):
+                        scale = max(w.abs().max().item(), 1e-30)
+                        err = (x.float() - w).abs().max().item()
+                        tol = BWD_TOL[dtype][gname] * scale
+                        errs.append(f"{gname} {err:.3e} (scale {scale:.3e}, tol {tol:.3e})")
+                        if not err <= tol:
+                            raise AssertionError(
+                                f"msda_backward ({path}) disagrees with the plain backward at "
+                                f"{name} {dtype}, {gname}: {err} > {tol}")
+                        if gname == "d_value":
+                            d_value_err = err
+
+                    def fn():
+                        return msda_backward(value, shapes, loc, attn, g)
+
+                    ms = time_ms(fn)
+                    device_ms = time_ms(fn, spin=True)
+                    log(f"msda_backward {path} {name} {str(dtype)[6:]} B={b} Q={q} H={h} D={d} "
+                        "max_abs_err: " + "; ".join(errs) + f"; call_ms={ms:.4f} "
+                        f"device_ms={device_ms:.4f} plain_ms={plain_ms:.4f} "
+                        f"bound_ms={bound_ms:.4f} ({bound_by}, {nbytes / 1e6:.1f} MB) "
+                        f"share_of_bound call={bound_ms / ms:.3f} "
+                        f"device={bound_ms / device_ms:.3f}")
+                    if binned:
+                        log("  the binned design moves (modelled): " + ", ".join(
+                            f"{k}={v:.1f}" if isinstance(v, float) else f"{k}={v}"
+                            for k, v in binned_traffic(value, shapes, loc, g).items()))
+                    if dtype == torch.bfloat16 and name in ("encoder", "decoder"):
+                        record[name, path] = dict(max_abs_err=d_value_err, ms=ms,
+                                                  device_ms=device_ms, plain_ms=plain_ms,
+                                                  bound_ms=bound_ms, bound_by=bound_by)
+                        log(f"msda_backward {path} {name} bf16, one call's launches under "
+                            "torch.profiler:")
+                        record[name, path]["launch_ms"] = launch_breakdown(fn)
+    # where the binned passes overtake the single pass: device ms of both at
+    # the encoder's levels, bf16, uniform locations, Q between the decoder's
+    # and the encoder's
+    for q in CROSSOVER_Q:
+        value, loc, attn = msda_inputs(ENC_SHAPES, 1, q, 8, 32, torch.bfloat16)
+        g = torch.randn(1, q, 256, device="cuda").to(torch.bfloat16)
+        times = {}
+        for binned in (True, False):
+            with backward_path(msda_cuda, binned):
+                times[binned] = time_ms(lambda: msda_backward(value, ENC_SHAPES, loc, attn, g),
+                                        spin=True)
+        log(f"msda_backward crossover Q={q} ({attn.numel()} samples) bf16 device_ms: binned "
+            f"{times[True]:.4f}, single_pass {times[False]:.4f}")
     return record
 
 
@@ -546,7 +668,8 @@ def phase_train_main_path(build_model, optim, step, tokenizer_mod, transforms, p
     """TRAIN_STEPS train steps of the full-width preset on one synthetic
     800x1216 image, a 4-category caption and 5 seeded boxes, with dropout
     at the preset's rates from a CUDA generator. Returns the launches of
-    both kernels over the steps."""
+    both kernels over the steps, and the binned ones of the backward (its
+    encoder calls)."""
     t0 = time.time()
     model = build_model("dualzerorepbranchgroundingdino", device="cuda", dtype="bfloat16",
                         seed=0)
@@ -571,24 +694,30 @@ def phase_train_main_path(build_model, optim, step, tokenizer_mod, transforms, p
 
     step_ms = []
     torch.cuda.reset_peak_memory_stats()
-    msda_forward.launches = msda_backward.launches = 0
+    msda_forward.launches = msda_backward.launches = msda_backward.binned_launches = 0
     for i in range(TRAIN_STEPS):
-        fwd, bwd = msda_forward.launches, msda_backward.launches
+        fwd, bwd, binned = (msda_forward.launches, msda_backward.launches,
+                            msda_backward.binned_launches)
         torch.cuda.synchronize()
         t = time.perf_counter()
         metrics = step.train_step(model, opt, batch, gen)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t) * 1e3)
         launched = (msda_forward.launches - fwd, msda_backward.launches - bwd)
+        n_binned = msda_backward.binned_launches - binned
         loss = metrics["total_loss"].item()
         log(f"train step {i}: {step_ms[-1]:.1f} ms, total_loss {loss:.4f}, grad_norm "
-            f"{metrics['grad_norm'].item():.4f}, msda launches (forward, backward) {launched}")
+            f"{metrics['grad_norm'].item():.4f}, msda launches (forward, backward) {launched}, "
+            f"{n_binned} of the backward binned")
         if not np.isfinite(loss):
             raise AssertionError(f"train step {i}: loss {loss}")
         if launched != (n_layers, n_layers):
             raise AssertionError(f"train step {i} launched (forward, backward) {launched}, "
                                  f"not {n_layers} each")
-    launches = (msda_forward.launches, msda_backward.launches)
+        if n_binned != cfg.enc_layers:
+            raise AssertionError(f"train step {i}: {n_binned} binned backward calls, not one "
+                                 f"per encoder layer ({cfg.enc_layers})")
+    launches = (msda_forward.launches, msda_backward.launches, msda_backward.binned_launches)
     peak = torch.cuda.max_memory_allocated()
     moved = [n for n, p in opt.params.items() if not torch.equal(p.detach(), start[n])]
     changed = [n for n, p in model.named_parameters()
@@ -722,6 +851,7 @@ def main() -> int:
         ms_deform_attn_backward_plain,
         ms_deform_attn_plain,
     )
+    from ziragroundingdino_torch.ops import msda_cuda
     from ziragroundingdino_torch.ops.msda_cuda import msda_backward, msda_forward
     from ziragroundingdino_torch.text import tokenizer as tokenizer_mod
     from ziragroundingdino_torch.train import criterion, optim, step
@@ -745,7 +875,7 @@ def main() -> int:
 
     # 3. kernels vs plain
     rec = phase_kernels(msda_forward, ms_deform_attn_plain)
-    rec_bwd = phase_backward(msda_backward, ms_deform_attn_backward_plain)
+    rec_bwd = phase_backward(msda_cuda, ms_deform_attn_backward_plain)
 
     # 4. whole model, card vs CPU: serving, then the train step
     models = tiny_models(pc, build_model, tokenizer_mod)
@@ -760,13 +890,13 @@ def main() -> int:
         phase_profile(inference, request, args.profile, card_line)
     del request
     torch.cuda.empty_cache()
-    (train_fwd, train_bwd), step_ms, peak = phase_train_main_path(
+    (train_fwd, train_bwd, train_binned), step_ms, peak = phase_train_main_path(
         build_model, optim, step, tokenizer_mod, transforms, pc, msda_forward, msda_backward,
         card_line, args.profile)
 
     # 6. result
     enc, dec = rec["encoder"], rec["decoder"]
-    benc, bdec = rec_bwd["encoder"], rec_bwd["decoder"]
+    benc = rec_bwd["encoder", "binned"]  # the path of the main path's encoder calls
     kernels = [{
         "name": "msda_forward",
         "route": "cuda",
@@ -800,17 +930,15 @@ def main() -> int:
         "bound_ms": benc["bound_ms"],
         "bound_by": benc["bound_by"],
         "library_ms": None,
-        "timed_at": "encoder call, bf16 value and grad_out, B=1 Q=S=20197 H=8 D=32 L=P=4; "
-                    "max_abs_err of d_value; launches over the train path's "
-                    f"{TRAIN_STEPS} steps",
+        "timed_at": "encoder call (binned passes), bf16 value and grad_out, B=1 Q=S=20197 "
+                    "H=8 D=32 L=P=4; max_abs_err of d_value; launches: calls over the train "
+                    f"path's {TRAIN_STEPS} steps (binned_launches of them binned); launch_ms: "
+                    "one call under torch.profiler; decoder: Q=900; by path",
+        "binned_launches": train_binned,
         "device_ms": benc["device_ms"],
-        "l2_gather_mb": benc["l2_gather_mb"],
-        "atomic_mb": benc["atomic_mb"],
-        "f32_accumulator_mb": benc["f32_accumulator_mb"],
-        "decoder": {k: bdec[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
-                                         "max_abs_err", "l2_gather_mb", "atomic_mb",
-                                         "f32_accumulator_mb")},
-        "decoder_timed_at": "decoder call, bf16, B=1 Q=900 S=20197 H=8 D=32 L=P=4",
+        "launch_ms": benc["launch_ms"],
+        "by_path": {f"{name} {path}": {k: v for k, v in r.items() if k != "bound_by"}
+                    for (name, path), r in rec_bwd.items()},
     }]
     log("train_step: " + json.dumps({
         "warm_median_ms": step_ms, "peak_memory_gib": peak / 2**30,

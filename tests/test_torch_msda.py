@@ -6,8 +6,10 @@ kernel) is held at 1e-5 abs in f32 against `ms_deform_attn_xla`,
 `ms_deform_attn_xla_quad` and the Pallas kernel `ms_deform_attn_pallas`
 itself, run in Pallas interpret mode on the CPU. Cases cover out-of-range
 locations (zero padding), locations exactly on 0 and 1, B=2, odd level
-sizes, D below a warp and the main path's own mapping (H=8, D=32, L=P=4) at a
-Q whose items do not fill the kernel's last tile. The CUDA kernel is held
+sizes, D below a warp, the main path's own mapping (H=8, D=32, L=P=4) at a
+Q whose items do not fill the kernel's last tile, and a hot level whose
+samples all fall in one cell (the backward kernel's bin of that cell splits
+over several chunks). The CUDA kernel is held
 against the plain version on the card (`cuda` marker), in both its (L, P)
 instantiations (L = P = 4 and the generic one) at every head dim it takes.
 The gradients: `ms_deform_attn_backward_plain` (the plain version of the
@@ -33,6 +35,7 @@ from ziragroundingdino_torch.ops.msda import (
     ms_deform_attn_backward_plain,
     ms_deform_attn_plain,
 )
+from ziragroundingdino_torch.ops import msda_cuda
 from ziragroundingdino_torch.ops.msda_cuda import msda_backward, msda_forward
 
 ATOL = 1e-5
@@ -51,6 +54,9 @@ CASES = {
     # the generic (L, P) instantiation at the wide head dims
     "generic_d32": (1, 19, 8, 32, 3, ((9, 7), (4, 5), (2, 3)), "edges"),
     "generic_d16": (2, 7, 2, 16, 2, ((3, 3), (2, 2), (1, 4), (1, 1), (2, 1)), (-0.5, 1.5)),
+    # every sample of level 0 inside one cell, so that the backward's bin of
+    # that cell takes 2,400 records per head and splits over chunks
+    "hot": (1, 600, 2, 32, 4, ((6, 5), (3, 3)), "hot"),
 }
 EDGES = (0.0, 1.0, -7.5, 8.25)
 
@@ -65,6 +71,13 @@ def _inputs(case, seed=0):
     if span == "edges":
         pick = rng.randint(0, len(EDGES) + 1, size)
         loc = np.where(pick < len(EDGES), np.take(EDGES + (0.0,), pick), rng.rand(*size))
+        loc = loc.astype(np.float32)
+    elif span == "hot":
+        loc = rng.rand(*size)
+        h0, w0 = shapes[0]
+        # x in [2.05, 2.95], y in [1.05, 1.95]: the cell (1, 2) and its neighbours
+        xy = np.array([2.05, 1.05]) + 0.9 * rng.rand(b, q, h, p, 2)
+        loc[:, :, :, 0] = (xy + 0.5) / np.array([w0, h0])
         loc = loc.astype(np.float32)
     else:
         lo, hi = span
@@ -166,7 +179,7 @@ def test_dispatch_and_chunking():
         ms_deform_attn(v.to("meta"), shapes, l_.to("meta"), a.to("meta"))
 
 
-def test_cuda_wrapper_refuses_what_it_cannot_run():
+def test_cuda_wrapper_refuses_what_it_cannot_run(monkeypatch):
     shapes, value, loc, attn = _inputs("inside")
     v, l_, a = torch.from_numpy(value), torch.from_numpy(loc), torch.from_numpy(attn)
     before = msda_forward.launches
@@ -181,6 +194,12 @@ def test_cuda_wrapper_refuses_what_it_cannot_run():
         msda_backward(v.detach(), shapes, l_, a, g)
     with pytest.raises(ValueError, match="grad_out must be"):
         msda_backward(v.detach(), shapes, l_, a, g[:, 1:])
+    # 100 x 100 tiles of 8 x 8 cells in one level: more than the kernel bins
+    monkeypatch.setattr(msda_cuda, "BINNED_MIN_SAMPLES", 0)
+    big = torch.zeros(1, 800 * 800, 2, 8)
+    with pytest.raises(ValueError, match="10000 tiles of 8x8 cells"):
+        msda_backward(big, ((800, 800),), l_[:, :, :, :1].contiguous(),
+                      a[:, :, :, :1].contiguous(), g)
     assert msda_backward.launches == before
 
 
@@ -253,14 +272,16 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_backward_kernel_matches_plain_on_card(cuda_device, dtype):
-    """Every case: `msda_backward` against `ms_deform_attn_backward_plain` on
-    the same inputs (bf16: the plain backward in f32 on the bf16 inputs).
-    f32: 1e-5 of each gradient's largest magnitude (summation order, and
-    atomic adds in an order that varies); bf16: d_value 1e-2 of its scale
-    (its one bf16 rounding), d_loc and d_attn 1e-4 (f32 outputs; the
-    products with bf16 inputs are exact in f32). Each call counts one
-    launch."""
+def test_backward_kernel_matches_plain_on_card(cuda_device, dtype, monkeypatch):
+    """Every case, both paths (the binned passes and the single-pass kernel,
+    forced through `BINNED_MIN_SAMPLES`):
+    `msda_backward` against `ms_deform_attn_backward_plain` on the same
+    inputs (bf16: the plain backward in f32 on the bf16 inputs). f32: 1e-5
+    of each gradient's largest magnitude (summation order, and atomic adds
+    in an order that varies); bf16: d_value 1e-2 of its scale (its one bf16
+    rounding), d_loc and d_attn 1e-4 (f32 outputs; the products with bf16
+    inputs are exact in f32). Each call counts one launch, a binned one
+    also one binned launch. The "hot" case splits its bin over chunks."""
     dt = getattr(torch, dtype)
     for case in sorted(CASES):
         shapes, value, loc, attn = _inputs(case)
@@ -268,16 +289,19 @@ def test_backward_kernel_matches_plain_on_card(cuda_device, dtype):
         l_ = torch.from_numpy(loc).to(cuda_device)
         a = torch.from_numpy(attn).to(cuda_device)
         g = torch.from_numpy(_grad_out(case)).to(cuda_device, dt)
-        before = msda_backward.launches
-        got = msda_backward(v, shapes, l_, a, g)
-        assert msda_backward.launches == before + 1
         want = ms_deform_attn_backward_plain(v.float(), shapes, l_, a, g.float())
-        for name, x, w in zip(("d_value", "d_loc", "d_attn"), got, want):
-            assert x.dtype == (dt if name == "d_value" else torch.float32), name
-            scale = max(w.abs().max().item(), 1e-30)
-            rel = ATOL if dt == torch.float32 else (1e-2 if name == "d_value" else 1e-4)
-            err = (x.float() - w).abs().max().item()
-            assert err <= rel * scale, (case, name, err, scale)
+        for binned in (True, False):
+            monkeypatch.setattr(msda_cuda, "BINNED_MIN_SAMPLES", 0 if binned else 2**62)
+            before = (msda_backward.launches, msda_backward.binned_launches)
+            got = msda_backward(v, shapes, l_, a, g)
+            assert (msda_backward.launches, msda_backward.binned_launches) == (
+                before[0] + 1, before[1] + binned)
+            for name, x, w in zip(("d_value", "d_loc", "d_attn"), got, want):
+                assert x.dtype == (dt if name == "d_value" else torch.float32), name
+                scale = max(w.abs().max().item(), 1e-30)
+                rel = ATOL if dt == torch.float32 else (1e-2 if name == "d_value" else 1e-4)
+                err = (x.float() - w).abs().max().item()
+                assert err <= rel * scale, (case, binned, name, err, scale)
 
 
 @pytest.mark.cuda
