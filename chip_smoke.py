@@ -49,7 +49,22 @@ Phases, in order (any failure raises, and the script exits non-zero):
      unchanged, every ZiRa
      branch moved; ms per step and peak memory; with --profile, a step's
      device busy time, idle share and top kernels;
-  6. result: a `kernels` JSON line, the nvidia-smi line, and last
+  6. the ZiRa lifecycle at full width: the port's ODinW driver
+     (`ziragroundingdino_torch.scripts.train_odinw.main`) on a seeded
+     reference-format checkpoint with a prompt memory and two synthetic
+     ODinW tasks (3 and 2 classes, 600x800 PPM originals): 4 train steps a
+     task at batch 2 with learned-name captions and a checkpoint every 2,
+     the merge, the prompt capture, 2 replay iterations, the eval of both
+     tasks; 12 `msda_forward` launches per train step and per eval batch,
+     12 `msda_backward` per train step (6 binned), the plain MSDA never;
+     after each merge every non-ZiRa tensor unchanged, each freeze branch
+     the trained freeze + scaling * branch, the branches and scalings
+     reset, the checkpoint's prompt memory in the chain; on an eval batch
+     of task A the encoder's memory and the encoded text before the merge
+     (train mode) and after it (eval) within MERGE_BF16_TOL; a finite
+     report, and a second run that restores both tasks and reports the
+     same; the stages' times and the peak memory;
+  7. result: a `kernels` JSON line, the nvidia-smi line, and last
      `{"ok": true, "device": {...}}`.
 
 It needs a CUDA card and the repository's `ziragroundingdino_torch` package
@@ -63,6 +78,7 @@ import contextlib
 import json
 import pathlib
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -738,6 +754,327 @@ def phase_train_main_path(build_model, optim, step, tokenizer_mod, transforms, p
     return launches, statistics.median(step_ms[1:]), peak
 
 
+# ---------------------------------------------------------------------------
+# 6. the ZiRa lifecycle at full width
+# ---------------------------------------------------------------------------
+
+LIFECYCLE_TASKS = {  # ODinW task name: (classes, train images, test images)
+    "CottontailRabbits": (["person", "dog", "cat"], 6, 3),
+    "pothole": (["car", "bicycle"], 4, 3),
+}
+LIFECYCLE_ORIG = (600, 800)  # synthetic originals (h, w): eval at 800x1066 in 800x1216
+LIFECYCLE_ITERS, LIFECYCLE_CKPT, LIFECYCLE_REPLAY, LIFECYCLE_BATCH = 4, 2, 2, 2
+LIFECYCLE_MEMORY = {"-fish-": 2, "-boat-": 1}  # the checkpoint's prompt memory: name, tokens
+MERGE_TOL = 1e-6  # freeze + scaling * branch in f32, times max(1, |freeze|)
+# before the merge (train mode, freeze + scaling * branch, two bf16 matmuls)
+# against after it (eval, one bf16 matmul of the merged f32 weight): the
+# relative Frobenius error of the encoder's image and text memory and of the
+# encoded text, bf16 rounding of the weights carried through 6 layers
+MERGE_BF16_TOL = 2e-2
+MERGE_EFFECT = 5.0  # the branches' own effect must exceed the error this many times
+
+
+def _seeded_rep_modules(model, seed: int = 3):
+    """Every ZiRa freeze and branch weight of `model` drawn from N(0, 1 /
+    fan_in), biases from N(0, 0.01): a checkpoint whose branches matter, so
+    that the merge check has something to see."""
+    from ziragroundingdino_torch.models.zira import RepZeroConv, RepZeroLinear
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, (RepZeroLinear, RepZeroConv)):
+                freeze = mod.freeze_linear if isinstance(mod, RepZeroLinear) else mod.freeze_conv
+                for w, b in ((mod.weight, mod.bias), (freeze.weight, freeze.bias)):
+                    fan_in = w[0].numel()
+                    w.copy_(torch.randn(w.shape, generator=g) / fan_in ** 0.5)
+                    b.copy_(0.01 * torch.randn(b.shape, generator=g))
+
+
+class _Instruments:
+    """Timed, counting wrappers around the lifecycle's stages, installed on
+    the modules whose globals the driver reads and removed by `restore`."""
+
+    def __init__(self, modules):
+        self.modules = modules
+        self.saved = []
+        self.times = {k: [] for k in ("load", "step", "checkpoint", "merge", "prompt",
+                                      "state_save", "replay", "eval_batch")}
+        self.plain_calls = 0
+
+    def _timed(self, name, fn):
+        def wrapper(*args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.times[name].append((time.perf_counter() - t) * 1e3)
+            return out
+        return wrapper
+
+    def _patch(self, module, name, new):
+        self.saved.append((module, name, getattr(module, name)))
+        setattr(module, name, new)
+
+    def install(self):
+        m = self.modules
+        for module, name, key in (
+                ("inference", "load_model", "load"), ("trainer", "train_step", "step"),
+                ("trainer", "save_checkpoint", "checkpoint"), ("incremental", "rep_merge", "merge"),
+                ("incremental", "add_cls_prompt", "prompt"),
+                ("incremental", "save_incremental_state", "state_save"),
+                ("incremental", "run_replay_phase", "replay")):
+            self._patch(m[module], name, self._timed(key, getattr(m[module], name)))
+        make_fn = m["evaluator"].make_inference_fn
+        self._patch(m["evaluator"], "make_inference_fn",
+                    lambda *a, **k: self._timed("eval_batch", make_fn(*a, **k)))
+        for name in ("ms_deform_attn_plain", "ms_deform_attn_backward_plain"):
+            plain = getattr(m["msda"], name)
+
+            def counted(*a, _plain=plain, **k):
+                self.plain_calls += 1
+                return _plain(*a, **k)
+            self._patch(m["msda"], name, counted)
+
+    def restore(self):
+        for module, name, old in reversed(self.saved):
+            setattr(module, name, old)
+        self.saved = []
+
+
+def _rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.float(), b.float()
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+def _merge_on_a_batch(build_model, root, out, tokenizer, cfg, dcfg):
+    """A fixed eval batch of task A through the model before its merge
+    (`ckpt/step_N.pt`: deterministic train mode, and eval mode, which sees
+    the freeze branches only) and after it (`state_final.pt`, eval mode):
+    the encoder's image and text memory and the encoded text. Returns
+    {what: (error after vs before, the branches' effect)}."""
+    from ziragroundingdino_torch.data.coco import CocoDataset
+    from ziragroundingdino_torch.data.loader import DataLoader
+    from ziragroundingdino_torch.models.groundingdino import TextEncoderOnly
+
+    name = next(iter(LIFECYCLE_TASKS))
+    task_dir = out / name
+    base = root / "data" / name
+    ds = CocoDataset.from_json(str(base / "test" / "annotations_without_background.json"),
+                               str(base / "test"))
+    batch = next(iter(DataLoader(ds, tokenizer, dcfg, batch_size=LIFECYCLE_BATCH, train=False,
+                                 max_text_len=cfg.max_text_len,
+                                 max_categories=cfg.max_categories)))
+    b = {k: torch.from_numpy(np.asarray(batch[k])).cuda() for k in (
+        "pixels", "mask", "input_ids", "text_token_mask", "position_ids",
+        "text_self_attention_masks")}
+    text = {k: b[k] for k in ("input_ids", "text_token_mask", "position_ids",
+                              "text_self_attention_masks")}
+    model = build_model("dualzerorepbranchgroundingdino", device="cuda", dtype="bfloat16")
+
+    def run(train):
+        got = {}
+        hook = model.transformer.encoder.register_forward_hook(
+            lambda m, a, o: got.update(image=o[0], text=o[1]))
+        try:
+            with torch.no_grad():
+                model(b["pixels"], b["mask"], text, train=train)
+                got["encoded_text"] = TextEncoderOnly(model)(text, train=train)[0]
+        finally:
+            hook.remove()
+        return got
+
+    ckpt = torch.load(task_dir / "ckpt" / f"step_{LIFECYCLE_ITERS}.pt", map_location="cuda",
+                      weights_only=True)
+    model.load_state_dict(ckpt["model"])
+    before, unmerged = run(True), run(False)
+    model.load_state_dict(torch.load(task_dir / "state_final.pt", map_location="cuda",
+                                     weights_only=True)["params"])
+    after = run(False)
+    del model
+    return {k: (_rel_err(after[k], before[k]), _rel_err(unmerged[k], before[k])) for k in before}
+
+
+def phase_lifecycle(build_model, msda_forward, msda_backward, card_line):
+    """The ZiRa lifecycle at full width through the port's ODinW driver
+    (`scripts/train_odinw.main`): a seeded reference-format checkpoint with
+    a prompt memory, two synthetic ODinW tasks (600x800 PPM originals, eval
+    at 800x1066 in 800x1216, training at `train_short_sides`), learned-name
+    caption augmentation on, LIFECYCLE_ITERS iterations a task at batch
+    LIFECYCLE_BATCH with a checkpoint every LIFECYCLE_CKPT, the merge, the
+    prompt capture, LIFECYCLE_REPLAY replay iterations and the eval of both
+    tasks. Then the checks (launches, the merges, the report) and a second
+    run that must restore both tasks and report the same. Returns the two
+    kernels' launches over the first run."""
+    from ziragroundingdino_torch import config as pc
+    from ziragroundingdino_torch.data import synthetic
+    from ziragroundingdino_torch.eval import evaluator
+    from ziragroundingdino_torch.models.zira import ZERO_VALUE
+    from ziragroundingdino_torch.ops import msda
+    from ziragroundingdino_torch.scripts import train_odinw
+    from ziragroundingdino_torch.text.tokenizer import WordPieceTokenizer, make_synthetic_vocab
+    from ziragroundingdino_torch.train import incremental
+    from ziragroundingdino_torch.train import trainer as trainer_mod
+    from ziragroundingdino_torch.utils import inference
+
+    root = pathlib.Path(__file__).resolve().parent / "build" / "lifecycle"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t0 = time.time()
+    model = build_model("dualzerorepbranchgroundingdino", device="cpu", dtype="bfloat16", seed=0)
+    _seeded_rep_modules(model)
+    g = torch.Generator().manual_seed(4)
+    memory = {k: torch.randn(n, model.cfg.hidden_dim, generator=g)
+              for k, n in LIFECYCLE_MEMORY.items()}
+    sd = dict(model.state_dict())
+    sd.update({f"prompt_memory_pool.{k}": v for k, v in memory.items()})
+    torch.save({"model": sd}, root / "ckpt.pth")
+    before_all = {k: v.clone() for k, v in model.state_dict().items()}
+    del model, sd
+    words = [c for classes, _, _ in LIFECYCLE_TASKS.values() for c in classes] + ["fish", "boat"]
+    vocab = make_synthetic_vocab(words)
+    synthetic.write_vocab(str(root / "vocab.txt"), vocab)
+    for i, (name, (classes, n_train, n_test)) in enumerate(LIFECYCLE_TASKS.items()):
+        synthetic.write_odinw_task(str(root / "data"), name, classes, n_train, n_test,
+                                   LIFECYCLE_ORIG, seed=100 + 10 * i)
+    (root / "overrides.json").write_text(json.dumps(
+        {"model": {"use_add_names": True, "use_learned_names": True}}))
+    out = root / "out"
+    args = ["--checkpoint", str(root / "ckpt.pth"), "--vocab", str(root / "vocab.txt"),
+            "--datasets-root", str(root / "data"), "--tasks", ",".join(LIFECYCLE_TASKS),
+            "--output-dir", str(out), "--batch-size", str(LIFECYCLE_BATCH),
+            "--max-iter", str(LIFECYCLE_ITERS), "--checkpoint-period", str(LIFECYCLE_CKPT),
+            "--replay-iters", str(LIFECYCLE_REPLAY),
+            "--config-overrides", str(root / "overrides.json")]
+    log(f"lifecycle: checkpoint, vocab and {len(LIFECYCLE_TASKS)} tasks written in "
+        f"{time.time() - t0:.1f} s")
+
+    inst = _Instruments({"inference": inference, "trainer": trainer_mod,
+                         "incremental": incremental, "evaluator": evaluator, "msda": msda})
+    inst.install()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        msda_forward.launches = msda_backward.launches = msda_backward.binned_launches = 0
+        t = time.perf_counter()
+        report = train_odinw.main(args)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t
+        launches = (msda_forward.launches, msda_backward.launches,
+                    msda_backward.binned_launches)
+        peak = torch.cuda.max_memory_allocated()
+        times = {k: list(v) for k, v in inst.times.items()}
+        plain_calls = inst.plain_calls
+
+        # the second run: both tasks restored from state_final, no training
+        for v in inst.times.values():
+            v.clear()
+        t = time.perf_counter()
+        report2 = train_odinw.main(args)
+        rerun_s = time.perf_counter() - t
+        rerun_steps = len(inst.times["step"])
+    finally:
+        inst.restore()
+
+    n_layers, n_enc = 12, 6  # the preset's 6 encoder + 6 decoder layers
+    steps, batches = len(times["step"]), len(times["eval_batch"])
+    want_steps = LIFECYCLE_ITERS * len(LIFECYCLE_TASKS)
+    want_batches = sum(-(-n_test // LIFECYCLE_BATCH) for _, _, n_test in LIFECYCLE_TASKS.values())
+    log(f"lifecycle: run 1 in {run_s:.1f} s: {steps} train steps, {batches} eval batches, "
+        f"msda launches (forward, backward, binned) {launches}; report {report}")
+    if (steps, batches) != (want_steps, want_batches):
+        raise AssertionError(f"{steps} steps and {batches} eval batches, "
+                             f"not {want_steps} and {want_batches}")
+    want = (n_layers * (steps + batches), n_layers * steps, n_enc * steps)
+    if launches != want:
+        raise AssertionError(f"lifecycle msda launches {launches}, not {want}")
+    if plain_calls:
+        raise AssertionError(f"the lifecycle called the plain MSDA {plain_calls} times")
+
+    # the merges: only the ZiRa modules change; freeze = trained freeze +
+    # scaling * trained branch; branch and scaling reset
+    cfg = pc.get_model_config("dualzerorepbranchgroundingdino")
+    before = before_all
+    merge_err = 0.0
+    for name in LIFECYCLE_TASKS:
+        final = torch.load(out / name / "state_final.pt", map_location="cpu", weights_only=True)
+        trained = torch.load(out / name / "ckpt" / f"step_{LIFECYCLE_ITERS}.pt",
+                             map_location="cpu", weights_only=True)["model"]
+        params = final["params"]
+        changed = [k for k, v in params.items() if "adapter" not in k and not torch.equal(v, before[k])]
+        if changed:
+            raise AssertionError(f"task {name} changed non-ZiRa tensors: {changed[:5]}")
+        for mod in ["rep_linear_adapter"] + [f"input_proj_conv_adapter.{i}" for i in range(4)]:
+            freeze = "freeze_linear" if mod == "rep_linear_adapter" else "freeze_conv"
+            s = trained[f"{mod}.scaling"]
+            for part in ("weight", "bias"):
+                want_f = trained[f"{mod}.{freeze}.{part}"] + s * trained[f"{mod}.{part}"]
+                err = float((params[f"{mod}.{freeze}.{part}"] - want_f).abs().max()
+                            / max(1.0, float(want_f.abs().max())))
+                merge_err = max(merge_err, err)
+                if err > MERGE_TOL:
+                    raise AssertionError(f"task {name}: {mod}.{freeze}.{part} off by {err}")
+                if not torch.all(params[f"{mod}.{part}"] == ZERO_VALUE):
+                    raise AssertionError(f"task {name}: {mod}.{part} not reset")
+            reset = cfg.zira_lan_scale if mod == "rep_linear_adapter" else cfg.zira_vis_scale
+            if not torch.all(params[f"{mod}.scaling"] == reset):
+                raise AssertionError(f"task {name}: {mod}.scaling not reset")
+        for k, v in memory.items():
+            if not torch.equal(final["prompt_memory"][k], v):
+                raise AssertionError(f"task {name}: the checkpoint's prompt {k} left the chain")
+        missing = {f"-{c}-" for c in LIFECYCLE_TASKS[name][0]} - set(final["prompt_memory"])
+        if missing:
+            raise AssertionError(f"task {name}: no prompt for {missing}")
+        before = params
+    learned = json.loads((out / name / "state_final.pt.classes.json").read_text())
+    if learned != [c for classes, _, _ in LIFECYCLE_TASKS.values() for c in classes]:
+        raise AssertionError(f"learned classes {learned}")
+
+    tokenizer = WordPieceTokenizer(vocab)
+    merged = _merge_on_a_batch(build_model, root, out, tokenizer, cfg, pc.DataConfig())
+    log("lifecycle: task A's merge on an eval batch, relative error after vs before "
+        "(and the branches' own effect): " + ", ".join(
+            f"{k} {e:.2e} ({x:.2e})" for k, (e, x) in merged.items()))
+    for k, (err, effect) in merged.items():
+        if err > MERGE_BF16_TOL or effect < MERGE_EFFECT * err:
+            raise AssertionError(f"merge on an eval batch, {k}: error {err}, effect {effect}")
+
+    keys = {f"AP/{n}" for n in LIFECYCLE_TASKS} | {"avg_AP"}
+    if set(report) != keys or not all(np.isfinite(v) for v in report.values()):
+        raise AssertionError(f"report {report}")
+    saved = json.loads((out / "result.json").read_text())
+    if report2 != report or saved != report or rerun_steps:
+        raise AssertionError(f"rerun: {report2} ({rerun_steps} steps) against {report}")
+    log(f"lifecycle: run 2 restored both tasks from state_final and reported the same in "
+        f"{rerun_s:.1f} s")
+
+    per_task = [times["step"][i * LIFECYCLE_ITERS:(i + 1) * LIFECYCLE_ITERS]
+                for i in range(len(LIFECYCLE_TASKS))]
+    eval_ms = statistics.median(times["eval_batch"][1:])
+    numbers = {
+        "card": card_line,
+        "at": f"dualzerorepbranchgroundingdino, bf16, batch {LIFECYCLE_BATCH}, "
+              f"{len(LIFECYCLE_TASKS)} tasks x {LIFECYCLE_ITERS} steps, 600x800 originals",
+        "step_ms_per_task": per_task,
+        "warm_step_median_ms_per_task": [statistics.median(t[1:]) for t in per_task],
+        "load_model_ms": times["load"],
+        "checkpoint_save_ms": times["checkpoint"],
+        "state_save_ms": times["state_save"],
+        "merge_ms": times["merge"],
+        "prompt_capture_ms": times["prompt"],
+        "eval_ms_per_batch": times["eval_batch"],
+        "eval_sec_per_img": eval_ms / LIFECYCLE_BATCH / 1e3,
+        "replay_ms_per_iter": times["replay"][0] / LIFECYCLE_REPLAY,
+        "run_s": run_s, "rerun_s": rerun_s,
+        "peak_memory_gib": peak / 2**30,
+        "merge_f32_max_rel_err": merge_err,
+        "report": report,
+    }
+    log("lifecycle: " + json.dumps(numbers))
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def _merged_ms(intervals) -> float:
     """Length of the union of (start, end) intervals in microseconds, in ms."""
     total, end = 0.0, float("-inf")
@@ -893,8 +1230,13 @@ def main() -> int:
     (train_fwd, train_bwd, train_binned), step_ms, peak = phase_train_main_path(
         build_model, optim, step, tokenizer_mod, transforms, pc, msda_forward, msda_backward,
         card_line, args.profile)
+    torch.cuda.empty_cache()
 
-    # 6. result
+    # 6. the ZiRa lifecycle at full width
+    life_fwd, life_bwd, life_binned = phase_lifecycle(build_model, msda_forward, msda_backward,
+                                                      card_line)
+
+    # 7. result
     enc, dec = rec["encoder"], rec["decoder"]
     benc = rec_bwd["encoder", "binned"]  # the path of the main path's encoder calls
     kernels = [{
@@ -915,6 +1257,7 @@ def main() -> int:
         "l2_gather_mb": enc["l2_gather_mb"],
         "host_us": rec["host_us"],
         "train_launches": train_fwd,
+        "lifecycle_launches": life_fwd,
         "decoder": {k: dec[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
                                         "max_abs_err", "l2_gather_mb")},
         "decoder_timed_at": "decoder call, bf16 value, B=1 Q=900 S=20197 H=8 D=32 L=P=4",
@@ -935,6 +1278,8 @@ def main() -> int:
                     f"path's {TRAIN_STEPS} steps (binned_launches of them binned); launch_ms: "
                     "one call under torch.profiler; decoder: Q=900; by path",
         "binned_launches": train_binned,
+        "lifecycle_launches": life_bwd,
+        "lifecycle_binned_launches": life_binned,
         "device_ms": benc["device_ms"],
         "launch_ms": benc["launch_ms"],
         "by_path": {f"{name} {path}": {k: v for k, v in r.items() if k != "bound_by"}

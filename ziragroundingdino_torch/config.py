@@ -1,12 +1,13 @@
 """Typed configuration of the PyTorch port.
 
 The port's own copy of the part of the JAX package's `config.py` that
-its serving path reads: `SwinConfig`, `BertConfig`, `GroundingDINOConfig`,
-`DataConfig` and the `dualzerorepbranchgroundingdino` preset (the ZiRa
-headline model, `GroundingDINO_SwinT_OGC_rep.py` in the reference). Field
-names and defaults are those of the JAX package, so one set of overrides
-configures both. `OptimizerConfig` and `ScheduleConfig` are the train step's
-(`train/optim.py`). `compute_dtype` names a `torch.dtype`; there is no
+its serving, training and lifecycle paths read: `SwinConfig`, `BertConfig`,
+`GroundingDINOConfig`, `DataConfig`, `TrainConfig`, `load_config_overrides`
+and the `dualzerorepbranchgroundingdino` preset (the ZiRa headline model,
+`GroundingDINO_SwinT_OGC_rep.py` in the reference). Field names and defaults
+are those of the JAX package, so one set of overrides configures both.
+`OptimizerConfig` and `ScheduleConfig` are the train step's
+(`train/optim.py`), `TrainConfig` the trainer's (`train/trainer.py`). `compute_dtype` names a `torch.dtype`; there is no
 `msda_impl`: the port has one MSDA and dispatches on the device. The
 switches that select another preset's architecture (`use_cet`,
 `use_project_adapter`, `use_fusion_layer`, `two_stage_type`, ...) are not
@@ -16,6 +17,7 @@ fields: the port builds this preset's architecture only.
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
@@ -71,7 +73,7 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 class GroundingDINOConfig:
     """Model config; fields as in the JAX package's `GroundingDINOConfig`
     (values from `GroundingDINO_SwinT_OGC_rep.py`). Only the fields that the
-    serving path and the train step read are kept."""
+    serving path, the train step and the lifecycle read are kept."""
 
     modelname: str = "dualzerorepbranchgroundingdino"
     pe_temperature_h: float = 20.0
@@ -94,6 +96,13 @@ class GroundingDINOConfig:
     fusion_droppath: float = 0.1
     # train
     aux_loss: bool = True
+    # test: detections kept per image by the evaluator
+    select_box_nums_for_evaluation: int = 200
+    # task-agnostic caption augmentation (`groundingdino_dt.py:452-460`):
+    # append up to num_select_prompt learned class names to a task's caption
+    use_add_names: bool = False
+    use_learned_names: bool = False
+    num_select_prompt: int = 20
     # ZiRa zero-interference losses (`GroundingDINO_SwinT_OGC_rep.py:62-96`)
     use_zero_inter_loss: bool = True
     use_zero_inter_loss_for_conv: bool = True
@@ -185,13 +194,54 @@ class ScheduleConfig:
 
 
 @dataclass(frozen=True)
-class DataConfig:
-    """Host data config: eval resize and the static padded (H, W) buckets."""
+class TrainConfig:
+    """What the trainer reads (`train/trainer.py`): where it writes, how long
+    it runs, how often it logs and checkpoints, and the seed of its
+    per-iteration generators. The optimizer's settings are `OptimizerConfig`
+    and `ScheduleConfig`."""
 
-    test_short_side: int = 800
+    output_dir: str = "./output"
+    max_iter: int = 2000
+    seed: int = 42
+    checkpoint_period: int = 2000
+    log_period: int = 20
+    fast_dev_run: bool = False  # shrink the run to 20 iterations (`train_net.py:313-317`)
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """Host data config: the multi-scale train augmentation
+    (`config/configs/common/data/odinw/aquarium.py:49-60`), the eval resize
+    and the static padded (H, W) buckets."""
+
+    train_short_sides: Tuple[int, ...] = (480, 512, 544, 576, 608, 640, 672, 704, 736, 768, 800)
     max_size: int = 1333
+    test_short_side: int = 800
+    random_flip: bool = True
     shape_buckets: Tuple[Tuple[int, int], ...] = (
         (512, 768), (512, 1024), (768, 1024), (800, 1216), (800, 1344), (1024, 1344),
     )
     pixel_mean: Tuple[float, float, float] = (123.675, 116.28, 103.53)
     pixel_std: Tuple[float, float, float] = (58.395, 57.12, 57.375)
+    max_boxes: int = 100  # ground-truth padding bound
+    num_workers: int = 2  # loader threads
+
+
+def load_config_overrides(path: str):
+    """Read a `{"model": {...}, "data": {...}}` overrides json (the drivers'
+    `--config-overrides`): json lists become tuples, and nested
+    `swin_config` / `bert_config` dicts become their dataclasses. Returns
+    (model overrides, data overrides) as dicts."""
+
+    def tuplify(v):
+        return tuple(tuplify(x) for x in v) if isinstance(v, list) else v
+
+    with open(path) as f:
+        ov = json.load(f)
+    model = ov.get("model", {})
+    model_ov = {k: tuplify(v) for k, v in model.items()}
+    for key, cls in (("swin_config", SwinConfig), ("bert_config", BertConfig)):
+        if isinstance(model.get(key), dict):
+            model_ov[key] = cls(**{k: tuplify(v) for k, v in model[key].items()})
+    data_ov = {k: tuplify(v) for k, v in ov.get("data", {}).items()}
+    return model_ov, data_ov

@@ -20,7 +20,7 @@ bbox_embed`) and the parameter-free `class_embed`.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -54,6 +54,45 @@ class InputProj(nn.Sequential):
         y = nn.functional.group_norm(y.float().permute(0, 3, 1, 2), norm.num_groups,
                                      norm.weight, norm.bias, norm.eps).permute(0, 2, 3, 1)
         return y.to(self.compute_dtype or x.dtype)
+
+
+def encode_text(bert: BertEncoder, feat_map: Linear, rep_linear_adapter: RepZeroLinear,
+                text: Dict[str, torch.Tensor], train: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The text path, BERT -> feat_map + the ZiRa language branch:
+    (encoded_text [B, T, E], the branch's ZIL in train mode, else None). The
+    ZIL is a mean over valid tokens (`zira.py:35-51` of the JAX package)."""
+    bert_out = bert(text["input_ids"], text["text_self_attention_masks"],
+                    position_ids=text["position_ids"], generator=generator)
+    if train:
+        rep_out, loss = rep_linear_adapter.forward_train(bert_out, mask=text["text_token_mask"])
+    else:
+        rep_out, loss = rep_linear_adapter(bert_out), None
+    return feat_map(bert_out) + rep_out, loss
+
+
+class TextEncoderOnly(nn.Module):
+    """The text path of `model` alone, for prompt-memory capture and text
+    replay (`groundingdino.py:117-166` of the JAX package; reference
+    `groundingdino_dt.py:379-437,786-838`). It holds the model's own `bert`,
+    `feat_map` and `rep_linear_adapter`, not copies, so the gradients of a
+    replay land on the model's parameters. BERT runs without dropout."""
+
+    def __init__(self, model: "GroundingDINO"):
+        super().__init__()
+        self.bert = model.bert
+        self.feat_map = model.feat_map
+        self.rep_linear_adapter = model.rep_linear_adapter
+
+    def forward(self, text: Dict[str, torch.Tensor], train: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(encoded_text [B, T, E], the language branch's ZIL: 0 unless train)."""
+        encoded, loss = encode_text(self.bert, self.feat_map, self.rep_linear_adapter, text,
+                                    train)
+        if loss is None:
+            loss = torch.zeros((), dtype=torch.float32, device=encoded.device)
+        return encoded, loss
 
 
 class GroundingDINO(nn.Module):
@@ -103,6 +142,8 @@ class GroundingDINO(nn.Module):
         text: Dict[str, torch.Tensor],
         train: bool = False,
         generator: Optional[torch.Generator] = None,
+        prompt_replace_values: Optional[torch.Tensor] = None,  # [B, T, E]
+        prompt_replace_mask: Optional[torch.Tensor] = None,  # [B, T] bool
     ) -> Dict[str, Any]:
         """Detections: `pred_logits` [B, Q, max_text_len] f32, `pred_boxes`
         [B, Q, 4] cxcywh, `encoded_text`, `topk_idx`. With `train`, the ZiRa
@@ -110,7 +151,9 @@ class GroundingDINO(nn.Module):
         `aux_outputs` (the first dec_layers - 1 decoder layers, with
         cfg.aux_loss), `interm_outputs` (the two-stage heads) and
         `adapter_losses` (the ZILs). `generator` (on the input's device)
-        draws dropout and stochastic depth; None means none."""
+        draws dropout and stochastic depth; None means none. Where
+        `prompt_replace_mask` is True, the encoded text takes
+        `prompt_replace_values` (`train.incremental.build_prompt_injection`)."""
         cfg = self.cfg
         cd = cfg.torch_dtype
         if pixels.dtype == torch.uint8:
@@ -119,15 +162,13 @@ class GroundingDINO(nn.Module):
             pixels = ((pixels.float() - mean) / std).masked_fill(~mask[..., None], 0.0)
 
         # ---- text path
-        bert_out = self.bert(text["input_ids"], text["text_self_attention_masks"],
-                             position_ids=text["position_ids"], generator=generator)
-        if train:
-            # the ZIL is a mean over valid tokens (`zira.py:35-51` of the JAX package)
-            rep_out, loss_linear = self.rep_linear_adapter.forward_train(
-                bert_out, mask=text["text_token_mask"])
-        else:
-            rep_out = self.rep_linear_adapter(bert_out)
-        encoded_text = self.feat_map(bert_out) + rep_out
+        encoded_text, loss_linear = encode_text(self.bert, self.feat_map,
+                                                self.rep_linear_adapter, text, train, generator)
+        if prompt_replace_values is not None and prompt_replace_mask is not None:
+            # prompt-memory injection: learned classes' token features
+            # replaced by their stored embeddings (`groundingdino_dt.py:521-531`)
+            encoded_text = torch.where(prompt_replace_mask[..., None],
+                                       prompt_replace_values.to(encoded_text.dtype), encoded_text)
         text_dict = {
             "encoded_text": encoded_text,
             "text_token_mask": text["text_token_mask"],

@@ -8,13 +8,15 @@ learnable scalar (`scaling`, init 0.1) and a zero-init freeze branch
 Serving (`forward`) runs the freeze branch only (`:94-95,126-127`).
 Training (`forward_train`) runs ``freeze(x) + scaling * branch(x)`` and
 returns the zero-interference loss ZIL = SmoothL1(branch_out, 0) +
-SmoothL1(out, 0) beside it (`:87-95,119-127`). The merge (`rep_merge`)
-belongs to the task lifecycle.
+SmoothL1(out, 0) beside it (`:87-95,119-127`). After each task the
+lifecycle merges every branch into its freeze branch (`rep_merge`, the
+reference's `__rep__`, `:97-103,129-135`), so that serving sees what the task
+learned.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -150,3 +152,48 @@ class RepZeroConv(nn.Module):
                                                  fc.stride[0], fc.padding[0])
         out = branch + fc(x)
         return out, smooth_l1_to_zero(branch) + smooth_l1_to_zero(out)
+
+
+def default_scale_reset(name: str, module: nn.Module) -> float:
+    """The scaling `rep_merge` restores by default: the dual modules' own
+    init, 0.1 for both the language and the vision branch (`:97-103,129-135`)."""
+    return LAN_SCALE
+
+
+def scale_reset_for_cfg(cfg) -> Callable[[str, nn.Module], float]:
+    """The scaling reset that honours the config's inits (`zira_lan_scale`
+    for the language branch `rep_linear_adapter`, `zira_vis_scale` for the
+    vision branches), as the reference's `__rep__` re-creates each module's
+    scaling at its own init."""
+
+    def reset(name: str, module: nn.Module) -> float:
+        return cfg.zira_lan_scale if "rep_linear_adapter" in name else cfg.zira_vis_scale
+
+    return reset
+
+
+@torch.no_grad()
+def rep_merge(model: nn.Module, zero_value: float = ZERO_VALUE,
+              scale_reset: Callable[[str, nn.Module], float] = default_scale_reset) -> List[str]:
+    """`__rep__` of every RepZeroLinear / RepZeroConv in `model`, in place, in
+    the parameters' f32: ``freeze += scaling * branch`` (weight and bias),
+    the branch set back to `zero_value` and `scaling` to
+    `scale_reset(name, module)`. Returns the merged modules' names. An
+    optimizer built before the merge holds moments of the old branches:
+    build a new one, as each task does."""
+    merged = []
+    for name, mod in model.named_modules():
+        if isinstance(mod, RepZeroLinear):
+            freeze = mod.freeze_linear
+        elif isinstance(mod, RepZeroConv):
+            freeze = mod.freeze_conv
+        else:
+            continue
+        s = mod.scaling
+        freeze.weight += s * mod.weight
+        freeze.bias += s * mod.bias
+        mod.weight.fill_(zero_value)
+        mod.bias.fill_(zero_value)
+        s.fill_(scale_reset(name, mod))
+        merged.append(name)
+    return merged

@@ -27,6 +27,21 @@ from ziragroundingdino_torch.config import OptimizerConfig, ScheduleConfig
 ZIRA_TRAINABLE_PATTERNS = ("adapter",)
 
 
+def trainable_patterns_for_cfg(cfg) -> Tuple[str, ...]:
+    """The reference's before_train unfreeze matrix (`groundingdino_dt.py:
+    775-783`): "adapter" always, plus the module groups of the PET
+    baselines' switches (`use_bert_tuning`, `use_cls_linear`,
+    `use_project_tuning`), which a config without them leaves off."""
+    pats = ["adapter"]
+    if getattr(cfg, "use_bert_tuning", False):
+        pats += ["bert", "feat_map"]
+    if getattr(cfg, "use_cls_linear", False):
+        pats += ["class_embed", "bbox_embed"]
+    if getattr(cfg, "use_project_tuning", False):
+        pats += ["input_proj"]
+    return tuple(pats)
+
+
 def trainable_mask(model: nn.Module, patterns: Sequence[str]) -> Dict[str, bool]:
     """{parameter name: trainable}: a substring match on the name, as the
     reference's `if "adapter" in name` loops."""
@@ -151,3 +166,21 @@ class Optimizer:
             ema_update(self.ema, self.params, self.ema_decay)
         self.adamw.zero_grad(set_to_none=True)
         return norm
+
+    def state_dict(self) -> Dict:
+        """AdamW's moments and step counts, the schedule's step and the EMA:
+        what a checkpoint needs to resume (`torch.load(weights_only=True)`
+        reads it back)."""
+        return {"adamw": self.adamw.state_dict(), "schedule": self.schedule.state_dict(),
+                "ema": self.ema}
+
+    def load_state_dict(self, state: Dict) -> None:
+        """Restore `state_dict()` of an Optimizer built the same way."""
+        self.adamw.load_state_dict(state["adamw"])
+        self.schedule.load_state_dict(state["schedule"])
+        if (self.ema is None) != (state["ema"] is None):
+            raise ValueError("the checkpoint's EMA does not match this optimizer's")
+        if self.ema is not None:
+            with torch.no_grad():
+                for n, e in self.ema.items():
+                    e.copy_(state["ema"][n])

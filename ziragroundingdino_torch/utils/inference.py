@@ -4,13 +4,13 @@ extraction, `util/utils.py:598`): `load_model`, `predict`,
 `predict_classes` and `get_phrases_from_posmap`.
 
 Every forward runs under `torch.inference_mode()` on the model's device.
-Images come in already normalized and padded to a bucket (`data.transforms`);
-the eval resize (`load_image`) is not part of the port yet.
+Images come in already normalized and padded to a bucket:
+`data.transforms.load_image` reads, resizes and pads one.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -30,13 +30,18 @@ from ziragroundingdino_torch.text.tokenizer import (
 # keys of a reference checkpoint that the port does not hold: buffers it
 # recomputes and modules it does not use for serving
 _DROPPED_KEYS = ("bert.pooler.", "bert.embeddings.position_ids", "relative_position_index",
-                 "attn_mask", "label_enc.", "prompt_memory_pool.")
+                 "attn_mask", "label_enc.")
+# per-class prompt memory (`groundingdino_dt.py:424-432`): ragged [n_tokens, E]
+# embeddings, kept beside the model (`LoadedModel.prompt_memory`)
+PROMPT_PREFIX = "prompt_memory_pool."
 
 
 @dataclass
 class LoadedModel:
     model: GroundingDINO
     tokenizer: WordPieceTokenizer
+    # "-name-" -> that class's stored token embeddings [n_tokens, E]
+    prompt_memory: Dict[str, np.ndarray] = field(default_factory=dict)
 
     @property
     def cfg(self) -> GroundingDINOConfig:
@@ -57,14 +62,20 @@ def load_model(
 ) -> LoadedModel:
     """Build `preset` and load a reference-format state dict (a `.pth` holding
     the state dict, or `{"model": state_dict}`) with `torch.load`.
-    `vocab_path` is bert-base-uncased's vocab.txt."""
+    `vocab_path` is bert-base-uncased's vocab.txt. The checkpoint's
+    `prompt_memory_pool.<name>` entries become `LoadedModel.prompt_memory`
+    (`utils/torch_convert.py:323-325` of the JAX package)."""
     model = build_model(preset, device=device, dtype=dtype, **overrides)
     ckpt = torch.load(state_dict_path, map_location="cpu", weights_only=True)
     sd = ckpt.get("model", ckpt)
     sd = {(k[len("module."):] if k.startswith("module.") else k): v for k, v in sd.items()}
-    sd = {k: v for k, v in sd.items() if not any(d in k for d in _DROPPED_KEYS)}
+    prompt_memory = {k[len(PROMPT_PREFIX):]: v.numpy() for k, v in sd.items()
+                     if k.startswith(PROMPT_PREFIX)}
+    sd = {k: v for k, v in sd.items()
+          if not k.startswith(PROMPT_PREFIX) and not any(d in k for d in _DROPPED_KEYS)}
     model.load_state_dict(sd, strict=True)
-    return LoadedModel(model=model, tokenizer=WordPieceTokenizer(load_vocab(vocab_path)))
+    return LoadedModel(model=model, tokenizer=WordPieceTokenizer(load_vocab(vocab_path)),
+                       prompt_memory=prompt_memory)
 
 
 def get_phrases_from_posmap(
