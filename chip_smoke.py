@@ -64,7 +64,25 @@ Phases, in order (any failure raises, and the script exits non-zero):
      (train mode) and after it (eval) within MERGE_BF16_TOL; a finite
      report, and a second run that restores both tasks and reports the
      same; the stages' times and the peak memory;
-  7. result: a `kernels` JSON line, the nvidia-smi line, and last
+  7. the released model and the rest of the ZiRa family at full width:
+     7a. a seeded reference-format checkpoint of the vanilla `groundingdino`
+       (no ZiRa key) through `load_model(..., preset="groundingdino")`, 4
+       `predict` requests on a PPM of phase 5's image (12 `msda_forward`
+       launches each), and the port's demo
+       (`scripts/inference_on_a_image.main`) on it: its JSON holds
+       `predict`'s boxes, and it writes the annotated PPM;
+     7b. the same checkpoint into `dualzerorepbranchgroundingdino`: the
+       ZiRa keys and nothing else missing, nothing unexpected, and the same
+       detections as 7a (eval runs only the zero freeze branches);
+     7c. `repgroundingdino`, `dualzerorepmultilayerbranchgroundingdino`,
+       `repconvbngroundingdino` and the LoRA language branch, each with
+       seeded ZiRa weights: 2 train steps on phase 5b's batch (12 + 12
+       launches a step, 6 binned), the merge (`rep_merge`, and
+       `rep_merge_convbn` for the BN variant): non-ZiRa tensors unchanged,
+       each freeze tensor the formula of its kind, and for the repconv and
+       LoRA configurations eval after the merge against train mode before
+       it on the batch; the warm step, peak memory and merge time;
+  8. result: a `kernels` JSON line, the nvidia-smi line, and last
      `{"ok": true, "device": {...}}`.
 
 It needs a CUDA card and the repository's `ziragroundingdino_torch` package
@@ -75,6 +93,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import pathlib
 import re
@@ -608,15 +627,26 @@ def phase_train_card_vs_cpu(models, criterion, optim, step, msda_forward, msda_b
                              f"{grad_err[worst]:.3e} of its scale")
 
 
+def synthetic_u8() -> np.ndarray:
+    """The seeded 800x1199 uint8 image of the main path."""
+    return np.random.RandomState(0).randint(0, 256, (800, 1199, 3)).astype(np.uint8)
+
+
 def synthetic_image(transforms, pc):
-    """A seeded 800x1199 uint8 image, normalized and padded to its bucket
-    (800x1216): pixels [1, H, W, 3], mask [1, H, W]."""
-    rng = np.random.RandomState(0)
-    image = rng.randint(0, 256, (800, 1199, 3)).astype(np.uint8)
+    """`synthetic_u8`, normalized and padded to its bucket (800x1216):
+    pixels [1, H, W, 3], mask [1, H, W]."""
+    image = synthetic_u8()
     data_cfg = pc.DataConfig()
     bucket = transforms.pick_bucket(800, 1199, data_cfg.shape_buckets)
     pixels, mask = transforms.pad_to_bucket(transforms.normalize(image, data_cfg), bucket)
     return pixels[None], mask[None]
+
+
+REQUEST_WORDS = ["person", "dog", "cat", "car", "bicycle", "traffic", "light", "zebra", "fish",
+                 "boat", "bird", "horse", "umbrella", "kite", "bottle", "cup", "the", "a",
+                 "left", "red", "on", "of", "man", "riding"]
+REQUEST_CAPTIONS = ["person . dog . cat .", "a man riding a bicycle", "red traffic light . car",
+                    "zebra . horse . bird . kite . umbrella"]
 
 
 def phase_main_path(build_model, inference, tokenizer_mod, transforms, pc, msda_forward,
@@ -628,15 +658,11 @@ def phase_main_path(build_model, inference, tokenizer_mod, transforms, pc, msda_
     n_params = sum(p.numel() for p in model.parameters())
     log(f"main path: built dualzerorepbranchgroundingdino ({n_params / 1e6:.1f} M params, "
         f"bf16 compute) in {time.time() - t0:.1f} s")
-    words = ["person", "dog", "cat", "car", "bicycle", "traffic", "light", "zebra", "fish",
-             "boat", "bird", "horse", "umbrella", "kite", "bottle", "cup", "the", "a", "left",
-             "red", "on", "of", "man", "riding"]
     lm = inference.LoadedModel(model=model, tokenizer=tokenizer_mod.WordPieceTokenizer(
-        tokenizer_mod.make_synthetic_vocab(words)))
+        tokenizer_mod.make_synthetic_vocab(REQUEST_WORDS)))
     cfg = model.cfg
     pixels, mask = synthetic_image(transforms, pc)
-    captions = ["person . dog . cat .", "a man riding a bicycle", "red traffic light . car",
-                "zebra . horse . bird . kite . umbrella"]
+    captions = REQUEST_CAPTIONS
 
     captured = {}
     hook = model.register_forward_hook(lambda m, a, out: captured.__setitem__("out", out))
@@ -777,18 +803,46 @@ MERGE_EFFECT = 5.0  # the branches' own effect must exceed the error this many t
 def _seeded_rep_modules(model, seed: int = 3):
     """Every ZiRa freeze and branch weight of `model` drawn from N(0, 1 /
     fan_in), biases from N(0, 0.01): a checkpoint whose branches matter, so
-    that the merge check has something to see."""
-    from ziragroundingdino_torch.models.zira import RepZeroConv, RepZeroLinear
+    that the merge check has something to see. The multilayer variant's
+    `freeze_gn` and ZeroConvBN's BatchNorm get scales of 1 + N(0, 0.01),
+    biases and means of N(0, 0.01) and variances in [0.5, 1.5]."""
+    from ziragroundingdino_torch.models.zira import (
+        RepZeroConv,
+        RepZeroConvGN,
+        RepZeroLinear,
+        RepZeroLoRA,
+        ZeroConvBN,
+    )
 
     g = torch.Generator().manual_seed(seed)
+
+    def weights(*ws):
+        for w in ws:
+            w.copy_(torch.randn(w.shape, generator=g) / w[0].numel() ** 0.5)
+
+    def small(*ts):
+        for t in ts:
+            t.copy_(0.01 * torch.randn(t.shape, generator=g))
+
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, (RepZeroLinear, RepZeroConv)):
                 freeze = mod.freeze_linear if isinstance(mod, RepZeroLinear) else mod.freeze_conv
                 for w, b in ((mod.weight, mod.bias), (freeze.weight, freeze.bias)):
-                    fan_in = w[0].numel()
-                    w.copy_(torch.randn(w.shape, generator=g) / fan_in ** 0.5)
-                    b.copy_(0.01 * torch.randn(b.shape, generator=g))
+                    weights(w)
+                    small(b)
+                if isinstance(mod, RepZeroConvGN):
+                    mod.freeze_gn.weight.copy_(1 + 0.01 * torch.randn(
+                        mod.freeze_gn.weight.shape, generator=g))
+                    small(mod.freeze_gn.bias)
+            elif isinstance(mod, RepZeroLoRA):
+                weights(mod.down.weight, mod.up.weight, mod.freeze_linear.weight)
+            elif isinstance(mod, ZeroConvBN):
+                conv, bn = mod.branch.conv, mod.branch.bn
+                weights(conv.weight, mod.freeze_conv.weight)
+                small(conv.bias, mod.freeze_conv.bias, bn.bias, bn.running_mean)
+                bn.weight.copy_(1 + 0.01 * torch.randn(bn.weight.shape, generator=g))
+                bn.running_var.copy_(0.5 + torch.rand(bn.running_var.shape, generator=g))
 
 
 class _Instruments:
@@ -1075,6 +1129,299 @@ def phase_lifecycle(build_model, msda_forward, msda_backward, card_line):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 7. the released model served, and the rest of the ZiRa family trained
+# ---------------------------------------------------------------------------
+
+# (label, preset, overrides) of phase 7c
+FAMILY = [("repgroundingdino", "repgroundingdino", {}),
+          ("multilayer", "dualzerorepmultilayerbranchgroundingdino", {}),
+          ("repconvbn", "repconvbngroundingdino", {}),
+          ("lora", "dualzerorepbranchgroundingdino", {"zira_lan_adapter": "lora"})]
+FAMILY_STEPS = 2
+VANILLA_TOL = 1e-3  # ZiRa-from-vanilla against vanilla detections (eval adds zero branches)
+
+
+def _request_outputs(inference, lm, pixels, mask, caption):
+    """`predict` on one request and the model's raw output of it."""
+    captured = {}
+    hook = lm.model.register_forward_hook(lambda m, a, out: captured.__setitem__("out", out))
+    try:
+        result = inference.predict(lm, pixels, mask, caption)
+    finally:
+        hook.remove()
+    return result, captured["out"]
+
+
+def phase_vanilla(build_model, inference, transforms, msda_forward, msda_backward, card_line):
+    """7a: the vanilla `groundingdino` served from a reference-format
+    checkpoint through `load_model`, REQUEST_CAPTIONS as `predict` requests
+    and the port's demo on a PPM of the main path's image; 7b: the same
+    checkpoint in the ZiRa preset. Returns the forward kernel's launches in
+    7a and in 7b."""
+    from ziragroundingdino_torch.data.synthetic import write_ppm, write_vocab
+    from ziragroundingdino_torch.scripts import inference_on_a_image
+    from ziragroundingdino_torch.text.tokenizer import make_synthetic_vocab
+
+    root = pathlib.Path(__file__).resolve().parent / "build" / "phase7"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t0 = time.time()
+    model = build_model("groundingdino", device="cpu", seed=0)
+    if any("adapter" in k for k in model.state_dict()):
+        raise AssertionError("the vanilla model holds ZiRa tensors")
+    torch.save({"model": model.state_dict()}, root / "groundingdino.pth")
+    del model
+    write_vocab(str(root / "vocab.txt"), make_synthetic_vocab(REQUEST_WORDS))
+    write_ppm(str(root / "image.ppm"), synthetic_u8())
+    ckpt, vocab, image = (str(root / n) for n in ("groundingdino.pth", "vocab.txt", "image.ppm"))
+    log(f"vanilla: checkpoint ({(root / 'groundingdino.pth').stat().st_size / 2**30:.2f} GiB), "
+        f"vocab and image written in {time.time() - t0:.1f} s")
+
+    # 7a: load_model, requests, the demo
+    msda_forward.launches = msda_backward.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    lm = inference.load_model(ckpt, vocab, preset="groundingdino", dtype="bfloat16")
+    load_ms = (time.perf_counter() - t) * 1e3
+    if lm.missing or lm.unexpected or lm.mismatched:
+        raise AssertionError(f"vanilla load: missing {lm.missing[:5]}, unexpected "
+                             f"{lm.unexpected[:5]}, mismatched {lm.mismatched[:5]}")
+    _, (pixels, mask), _ = transforms.load_image(image)
+    cfg = lm.cfg
+    n_layers = cfg.enc_layers + cfg.dec_layers
+    request_ms, outs = [], []
+    for caption in REQUEST_CAPTIONS:
+        before = msda_forward.launches
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        (boxes, scores, phrases), out = _request_outputs(inference, lm, pixels, mask, caption)
+        torch.cuda.synchronize()
+        request_ms.append((time.perf_counter() - t) * 1e3)
+        outs.append(out)
+        if msda_forward.launches - before != n_layers:
+            raise AssertionError(f"vanilla request launched msda_forward "
+                                 f"{msda_forward.launches - before} times, not {n_layers}")
+        logits, pboxes = out["pred_logits"], out["pred_boxes"]
+        if not (torch.isfinite(logits).all() and torch.isfinite(pboxes).all()):
+            raise AssertionError("non-finite vanilla detections")
+        if tuple(pboxes.shape) != (1, cfg.num_queries, 4):
+            raise AssertionError(f"vanilla pred_boxes shape {tuple(pboxes.shape)}")
+    caption = REQUEST_CAPTIONS[0]
+    want = inference.predict(lm, pixels, mask, caption, box_threshold=0.0)
+    printed = io.StringIO()  # the demo prints its 900 boxes: kept out of this log
+    with contextlib.redirect_stdout(printed):
+        pred = inference_on_a_image.main(["-c", "groundingdino", "-p", ckpt, "--vocab", vocab,
+                                          "-i", image, "-t", caption, "-o", str(root / "demo"),
+                                          "--box-threshold", "0.0"])
+    saved = json.loads((root / "demo" / "pred.json").read_text())
+    drawn = transforms.read_image(str(root / "demo" / "pred.ppm"))
+    box_gap = float(np.abs(np.asarray(saved["boxes"], np.float32) - want[0]).max())
+    score_gap = float(np.abs(np.asarray(saved["scores"], np.float32) - want[1]).max())
+    launches_a = msda_forward.launches
+    peak = torch.cuda.max_memory_allocated()
+    log(f"vanilla: load_model {load_ms:.1f} ms; {len(REQUEST_CAPTIONS)} requests at 800x1216, "
+        f"per-request ms {[round(x, 2) for x in request_ms]} (first includes warm-up), median "
+        f"{statistics.median(request_ms[1:]):.2f} ms, peak memory {peak / 2**30:.2f} GiB; demo: "
+        f"{len(saved['boxes'])} boxes ({len(printed.getvalue())} bytes printed), "
+        f"max |demo - predict| boxes {box_gap:.3e} scores "
+        f"{score_gap:.3e}, annotated {drawn.shape}; msda_forward launches {launches_a} "
+        f"({n_layers} a request), msda_backward {msda_backward.launches}; on {card_line}")
+    if saved != pred or saved["phrases"] != want[2] or len(saved["boxes"]) != cfg.num_queries:
+        raise AssertionError("the demo's detections are not predict's")
+    if box_gap > 0 or score_gap > 0:
+        raise AssertionError(f"the demo's boxes differ from predict's by {box_gap}, {score_gap}")
+    if drawn.shape != synthetic_u8().shape:
+        raise AssertionError(f"annotated image {drawn.shape}")
+    if launches_a != n_layers * (len(REQUEST_CAPTIONS) + 2) or msda_backward.launches:
+        raise AssertionError(f"vanilla serving launches {launches_a}, {msda_backward.launches}")
+    del lm
+
+    # 7b: the same checkpoint in the ZiRa preset (the Queue 3 repair)
+    msda_forward.launches = 0
+    lmz = inference.load_model(ckpt, vocab, preset="dualzerorepbranchgroundingdino",
+                               dtype="bfloat16")
+    zira_keys = sorted(k for k in lmz.model.state_dict() if "adapter" in k)
+    if sorted(lmz.missing) != zira_keys or lmz.unexpected or lmz.mismatched:
+        raise AssertionError(f"ZiRa load: missing {lmz.missing[:5]} (want the {len(zira_keys)} "
+                             f"ZiRa keys), unexpected {lmz.unexpected[:5]}")
+    _, zout = _request_outputs(inference, lmz, pixels, mask, REQUEST_CAPTIONS[-1])
+    launches_b = msda_forward.launches
+    same_idx = torch.equal(zout["topk_idx"], outs[-1]["topk_idx"])
+    gaps = {k: float((zout[k].float() - outs[-1][k].float()).abs().max())
+            for k in ("pred_logits", "pred_boxes")}
+    log(f"vanilla into ZiRa: missing = the {len(zira_keys)} ZiRa keys, nothing unexpected; "
+        f"top-900 equal={same_idx}, max abs gap " + ", ".join(f"{k} {v:.3e}" for k, v in
+                                                             gaps.items())
+        + f" (tol {VANILLA_TOL}); msda_forward launches {launches_b}")
+    if not same_idx or max(gaps.values()) > VANILLA_TOL or launches_b != n_layers:
+        raise AssertionError(f"ZiRa from the vanilla checkpoint: topk {same_idx}, gaps {gaps}, "
+                             f"launches {launches_b}")
+    del lmz
+    shutil.rmtree(root, ignore_errors=True)
+    return launches_a, launches_b, {"request_median_ms": statistics.median(request_ms[1:]),
+                                    "request_ms": request_ms, "load_model_ms": load_ms,
+                                    "peak_memory_gib": peak / 2**30}
+
+
+def _zira_state(model):
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def _check_family_merge(label, model, trained, merged_names, zira):
+    """Every non-ZiRa tensor bitwise unchanged; each merged freeze tensor the
+    formula of its module kind at MERGE_TOL (relative to max(1, |want|)).
+    Returns the largest error."""
+    sd = model.state_dict()
+    changed = [k for k, v in sd.items() if "adapter" not in k and not torch.equal(v, trained[k])]
+    if changed:
+        raise AssertionError(f"{label}: the merge changed non-ZiRa tensors {changed[:5]}")
+    worst = 0.0
+    for name in merged_names:
+        mod = model.get_submodule(name)
+        p = f"{name}."
+        if isinstance(mod, zira.ZeroConvBN):
+            t = trained[p + "branch.bn.weight"] / torch.sqrt(trained[p + "branch.bn.running_var"]
+                                                              + zira.BN_EPS)
+            want = {"freeze_conv.weight": trained[p + "freeze_conv.weight"]
+                    + trained[p + "branch.conv.weight"] * t[:, None, None, None],
+                    "freeze_conv.bias": trained[p + "freeze_conv.bias"] + trained[p + "branch.bn.bias"]
+                    + (trained[p + "branch.conv.bias"] - trained[p + "branch.bn.running_mean"]) * t}
+        elif isinstance(mod, zira.RepZeroLoRA):
+            want = {"freeze_linear.weight": trained[p + "freeze_linear.weight"]
+                    + trained[p + "scaling"] * (trained[p + "up.weight"]
+                                                @ trained[p + "down.weight"])}
+        else:
+            freeze = "freeze_linear" if isinstance(mod, zira.RepZeroLinear) else "freeze_conv"
+            want = {f"{freeze}.{part}": trained[f"{p}{freeze}.{part}"]
+                    + trained[p + "scaling"] * trained[p + part] for part in ("weight", "bias")}
+        for k, w in want.items():
+            err = float((sd[p + k] - w).abs().max() / max(1.0, float(w.abs().max())))
+            worst = max(worst, err)
+            if err > MERGE_TOL:
+                raise AssertionError(f"{label}: {name}.{k} off by {err}")
+    return worst
+
+
+def _encoder_outputs(model, TextEncoderOnly, batch, text, train):
+    got = {}
+    hook = model.transformer.encoder.register_forward_hook(
+        lambda m, a, o: got.update(image=o[0], text=o[1]))
+    try:
+        with torch.no_grad():
+            model(batch["pixels"], batch["mask"], text, train=train)
+            got["encoded_text"] = TextEncoderOnly(model)(text, train=train)[0]
+    finally:
+        hook.remove()
+    return got
+
+
+def phase_family(build_model, optim, step, tokenizer_mod, transforms, pc, msda_forward,
+                 msda_backward, card_line):
+    """7c: each configuration of FAMILY at full width, seeded ZiRa weights,
+    FAMILY_STEPS train steps on phase 5b's batch, then its merge and the
+    checks. Returns {label: (forward, backward, binned launches)} and
+    {label: its warm step, peak memory and merge time}."""
+    launches, numbers = {}, {}
+    for label, preset, extra in FAMILY:
+        # one function call per configuration, so that its models, state
+        # copies and activations are freed before the next one's peak
+        launches[label], numbers[label] = _train_and_merge(
+            label, preset, extra, build_model, optim, step, tokenizer_mod, transforms, pc,
+            msda_forward, msda_backward, card_line)
+        torch.cuda.empty_cache()
+    return launches, numbers
+
+
+def _train_and_merge(label, preset, extra, build_model, optim, step, tokenizer_mod, transforms,
+                     pc, msda_forward, msda_backward, card_line):
+    """One configuration of phase 7c; returns its launches and numbers."""
+    from ziragroundingdino_torch.models import zira
+    from ziragroundingdino_torch.models.groundingdino import TextEncoderOnly
+
+    words = ["person", "dog", "cat", "car"]
+    tok = tokenizer_mod.WordPieceTokenizer(tokenizer_mod.make_synthetic_vocab(words))
+    t0 = time.time()
+    model = build_model(preset, device="cuda", dtype="bfloat16", seed=0, **extra)
+    _seeded_rep_modules(model)
+    cfg = model.cfg
+    optim.set_trainable(model, optim.trainable_patterns_for_cfg(cfg))
+    opt = optim.Optimizer(model, pc.OptimizerConfig(), pc.ScheduleConfig())
+    tb = tokenizer_mod.tokenize_captions(tok, [" . ".join(words) + " ."],
+                                         max_text_len=cfg.max_text_len,
+                                         max_categories=cfg.max_categories)
+    pixels, mask = synthetic_image(transforms, pc)
+    batch = train_batch(tb, pixels, mask, "cuda", n_labels=len(words))
+    text = {k: batch[k] for k in step.TEXT_KEYS}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters()
+              if not p.requires_grad}
+    n_layers = cfg.enc_layers + cfg.dec_layers
+    step_ms = []
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    torch.cuda.reset_peak_memory_stats()
+    msda_forward.launches = msda_backward.launches = msda_backward.binned_launches = 0
+    for i in range(FAMILY_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        metrics = step.train_step(model, opt, batch, gen)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        if not np.isfinite(metrics["total_loss"].item()):
+            raise AssertionError(f"{label}: step {i} loss {metrics['total_loss'].item()}")
+    got = (msda_forward.launches, msda_backward.launches, msda_backward.binned_launches)
+    peak = torch.cuda.max_memory_allocated()
+    want = (n_layers * FAMILY_STEPS, n_layers * FAMILY_STEPS, cfg.enc_layers * FAMILY_STEPS)
+    if got != want:
+        raise AssertionError(f"{label}: msda launches {got}, not {want}")
+    changed = [n for n, p in model.named_parameters()
+               if not p.requires_grad and not torch.equal(p.detach(), frozen[n])]
+    if changed:
+        raise AssertionError(f"{label}: frozen parameters changed {changed[:5]}")
+    losses = sorted(k for k in metrics if k.startswith("loss_") and "adapter" in k)
+
+    # the merge: exact reparameterisations are checked on an eval batch too
+    exact = label in ("repgroundingdino", "lora")
+    trained = _zira_state(model)
+    if exact:
+        before = _encoder_outputs(model, TextEncoderOnly, batch, text, True)
+        unmerged = _encoder_outputs(model, TextEncoderOnly, batch, text, False)
+    t = time.perf_counter()
+    merged = zira.rep_merge(model, scale_reset=zira.scale_reset_for_cfg(cfg))
+    if label == "repconvbn":
+        if merged:
+            raise AssertionError(f"rep_merge folded ZeroConvBN modules {merged}")
+        merged = zira.rep_merge_convbn(model)
+    torch.cuda.synchronize()
+    merge_ms = (time.perf_counter() - t) * 1e3
+    n_lang = 0 if model.lang_adapter is None else 1
+    if len(merged) != n_lang + cfg.num_feature_levels:
+        raise AssertionError(f"{label}: merged {merged}")
+    merge_err = _check_family_merge(label, model, trained, merged, zira)
+    effect = {}
+    if exact:
+        after = _encoder_outputs(model, TextEncoderOnly, batch, text, False)
+        effect = {k: (_rel_err(after[k], before[k]), _rel_err(unmerged[k], before[k]))
+                  for k in before}
+        for k, (err, eff) in effect.items():
+            if err > MERGE_BF16_TOL or eff < MERGE_EFFECT * err:
+                raise AssertionError(f"{label}: merge on the batch, {k}: error {err}, "
+                                     f"effect {eff}")
+    numbers = {"warm_step_ms": statistics.median(step_ms[1:]), "step_ms": step_ms,
+               "peak_memory_gib": peak / 2**30, "merge_ms": merge_ms}
+    log(f"family {label} ({preset}{', ' + str(extra) if extra else ''}): built in "
+        f"{build_s:.1f} s; {len(opt.params)} trainable tensors; {FAMILY_STEPS} steps at "
+        f"800x1216 bf16, per-step ms {[round(x, 2) for x in step_ms]} (warm "
+        f"{numbers['warm_step_ms']:.2f}), peak {peak / 2**30:.2f} GiB; ZILs {losses}; "
+        f"msda launches (forward, backward, binned) {got}; merged {len(merged)} modules in "
+        f"{merge_ms:.2f} ms, largest rel err {merge_err:.2e}"
+        + ("; after vs before (effect): " + ", ".join(
+            f"{k} {e:.2e} ({x:.2e})" for k, (e, x) in effect.items()) if effect else "")
+        + f"; on {card_line}")
+    return got, numbers
+
+
 def _merged_ms(intervals) -> float:
     """Length of the union of (start, end) intervals in microseconds, in ms."""
     total, end = 0.0, float("-inf")
@@ -1235,8 +1582,16 @@ def main() -> int:
     # 6. the ZiRa lifecycle at full width
     life_fwd, life_bwd, life_binned = phase_lifecycle(build_model, msda_forward, msda_backward,
                                                       card_line)
+    torch.cuda.empty_cache()
 
-    # 7. result
+    # 7. the released model served (7a, 7b), the rest of the ZiRa family (7c)
+    vanilla_fwd, zira_from_vanilla_fwd, vanilla = phase_vanilla(
+        build_model, inference, transforms, msda_forward, msda_backward, card_line)
+    torch.cuda.empty_cache()
+    family_launches, family = phase_family(build_model, optim, step, tokenizer_mod, transforms,
+                                           pc, msda_forward, msda_backward, card_line)
+
+    # 8. result
     enc, dec = rec["encoder"], rec["decoder"]
     benc = rec_bwd["encoder", "binned"]  # the path of the main path's encoder calls
     kernels = [{
@@ -1258,6 +1613,9 @@ def main() -> int:
         "host_us": rec["host_us"],
         "train_launches": train_fwd,
         "lifecycle_launches": life_fwd,
+        "vanilla_serving_launches": vanilla_fwd,
+        "zira_from_vanilla_launches": zira_from_vanilla_fwd,
+        "family_train_launches": {k: v[0] for k, v in family_launches.items()},
         "decoder": {k: dec[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
                                         "max_abs_err", "l2_gather_mb")},
         "decoder_timed_at": "decoder call, bf16 value, B=1 Q=900 S=20197 H=8 D=32 L=P=4",
@@ -1280,6 +1638,8 @@ def main() -> int:
         "binned_launches": train_binned,
         "lifecycle_launches": life_bwd,
         "lifecycle_binned_launches": life_binned,
+        "family_train_launches": {k: v[1] for k, v in family_launches.items()},
+        "family_train_binned_launches": {k: v[2] for k, v in family_launches.items()},
         "device_ms": benc["device_ms"],
         "launch_ms": benc["launch_ms"],
         "by_path": {f"{name} {path}": {k: v for k, v in r.items() if k != "bound_by"}
@@ -1288,6 +1648,10 @@ def main() -> int:
     log("train_step: " + json.dumps({
         "warm_median_ms": step_ms, "peak_memory_gib": peak / 2**30,
         "at": "dualzerorepbranchgroundingdino, bf16, batch 1, 800x1216"}))
+    log("phase 7: " + json.dumps({
+        "vanilla_serving": vanilla, "family": family,
+        "at": "800x1216, bf16, batch 1; family: " + ", ".join(
+            f"{label} = {preset} {extra or ''}".strip() for label, preset, extra in FAMILY)}))
     log(json.dumps({"kernels": kernels}))
     log(card_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

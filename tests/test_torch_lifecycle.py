@@ -262,7 +262,8 @@ def test_load_model_keeps_prompt_memory(tiny_pair, tmp_path):
     vocab = tmp_path / "vocab.txt"
     write_vocab(str(vocab), tiny_tokenizer().vocab)
 
-    lm = load_model(str(ckpt), str(vocab), device="cpu", **_port_fields(tp))
+    lm = load_model(str(ckpt), str(vocab), preset="dualzerorepbranchgroundingdino", device="cpu",
+                    **_port_fields(tp))
     _, _, jmemory, _ = load_torch_checkpoint(str(ckpt))
     assert lm.prompt_memory.keys() == jmemory.keys() == memory.keys()
     for k, v in memory.items():

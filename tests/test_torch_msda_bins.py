@@ -135,7 +135,12 @@ def _binned_backward(shapes, value, loc, attn, g, tile, chunk):
     value window of the bin's window and the row and column before it (zero
     outside the level), each record's corner dots from it, and the d_value
     window whose cells inside the level go to d_value; each record's d_loc
-    and d_attn gathered back to its sample (zero for an unbinned one)."""
+    and d_attn gathered back to its sample (zero for an unbinned one).
+    Every chunk's windows are filled, and every record's corners read and
+    summed, at once: one gather through an index tensor of each chunk's
+    window cells, one `index_add_` of the records' corners into the d_value
+    windows, and one `index_add_` of the window cells inside the level
+    into d_value (the flush)."""
     b, s, h, d = value.shape
     plan = bin_plan(shapes, tile)
     bins, keys = sample_bins(loc, shapes, plan)
@@ -155,51 +160,64 @@ def _binned_backward(shapes, value, loc, attn, g, tile, chunk):
     table = chunk_table(torch.bincount(flat[rec_sample], minlength=b * h * plan.n_tiles), chunk)
     win, side = tile + 1, tile + 2
     starts = np.cumsum([0] + [hh_ * ww_ for hh_, ww_ in shapes])
-    windows = torch.zeros(len(table), win * win, d)
-    rec_out = torch.zeros(len(rec_sample), 3)  # d_attn, d_loc x, d_loc y
-    g_rows = g.reshape(b, -1, h, d)
-    for c, (bin_, begin, end) in enumerate(table.tolist()):
-        bh, t = divmod(bin_, plan.n_tiles)
-        bb, hh = divmod(bh, h)
-        lvl, oy, _, ox, _ = tile_region(plan, shapes, t, window=True)
-        h_l, w_l = shapes[lvl]
-        vwin = torch.zeros(side * side, d)
-        for vy in range(side):
-            for vx in range(side):
-                y, x = oy - 1 + vy, ox - 1 + vx
-                if 0 <= y < h_l and 0 <= x < w_l:
-                    vwin[vy * side + vx] = value[bb, starts[lvl] + y * w_l + x, hh]
-        key = rec_key[begin:end]
-        lx, ly = (key & 15) - 1, ((key >> 4) & 15) - 1
-        qq = key >> 8
-        fx_, fy_, a = rec_fx[begin:end], rec_fy[begin:end], rec_a[begin:end]
-        gv = g_rows[bb, qq, hh]  # [n, D]
-        da, dx, dy = (torch.zeros(end - begin) for _ in range(3))
-        for cy, cx in ((0, 0), (0, 1), (1, 0), (1, 1)):
-            wx, wy = (fx_ if cx else 1 - fx_), (fy_ if cy else 1 - fy_)
-            dot = (gv * vwin[(ly + 1 + cy) * side + lx + 1 + cx]).sum(-1)
-            da += wx * wy * dot
-            dx += (1 if cx else -1) * wy * dot
-            dy += wx * (1 if cy else -1) * dot
-            # the flush's validity: from the window cell and the level's size
-            ok = ((lx + cx >= 0) & (ox + lx + cx < w_l) & (ly + cy >= 0) & (oy + ly + cy < h_l))
-            cell = (ly + cy) * win + lx + cx
-            windows[c].index_add_(0, cell[ok], ((wx * wy * a)[:, None] * gv)[ok])
-        rec_out[begin:end] = torch.stack((da, a * dx * w_l, a * dy * h_l), 1)
-    d_value = torch.zeros(b, s, h, d)
-    for c, (bin_, _, _) in enumerate(table.tolist()):
-        bh, t = divmod(bin_, plan.n_tiles)
-        bb, hh = divmod(bh, h)
-        lvl, y0, y1, x0, x1 = tile_region(plan, shapes, t, window=True)
-        w_l = shapes[lvl][1]
-        for y in range(y0, y1):
-            for x in range(x0, x1):
-                d_value[bb, starts[lvl] + y * w_l + x, hh] += windows[c, (y - y0) * win + x - x0]
+
+    # each chunk's (b, h), level and window origin (the tile's first cell)
+    n_chunks = len(table)
+    bh, t = table[:, 0] // plan.n_tiles, table[:, 0] % plan.n_tiles
+    c_b, c_h = bh // h, bh % h
+    region = [tile_region(plan, shapes, ti, window=True) for ti in t.tolist()]
+    c_lvl = torch.tensor([r[0] for r in region])
+    c_oy = torch.tensor([r[1] for r in region])
+    c_ox = torch.tensor([r[3] for r in region])
+    c_hl = torch.tensor(shapes)[c_lvl, 0]
+    c_wl = torch.tensor(shapes)[c_lvl, 1]
+    c_row0 = (c_b * s + torch.from_numpy(starts)[c_lvl]) * h + c_h  # row of cell (0, 0)
+
+    def cells(n, off):
+        """[n_chunks, n * n] level (y, x) of each chunk's n x n cells from
+        its origin + off, their rows in [B * S * H, D] and whether they lie
+        inside the level."""
+        vy, vx = torch.meshgrid(torch.arange(n), torch.arange(n), indexing="ij")
+        y = c_oy[:, None] + off + vy.flatten()[None]
+        x = c_ox[:, None] + off + vx.flatten()[None]
+        inside = (y >= 0) & (y < c_hl[:, None]) & (x >= 0) & (x < c_wl[:, None])
+        rows = c_row0[:, None] + (y * c_wl[:, None] + x) * h
+        return torch.where(inside, rows, 0), inside
+
+    # the value windows: side x side cells from one before the origin
+    rows, inside = cells(side, -1)
+    vwin = value.reshape(-1, d)[rows] * inside[..., None]  # [n_chunks, side * side, D]
+
+    rec_chunk = torch.repeat_interleave(torch.arange(n_chunks), table[:, 2] - table[:, 1])
+    key = rec_key
+    lx, ly = (key & 15) - 1, ((key >> 4) & 15) - 1
+    qq = key >> 8
+    gv = g.reshape(b, -1, h, d)[c_b[rec_chunk], qq, c_h[rec_chunk]]  # [n, D]
+    ox, oy = c_ox[rec_chunk], c_oy[rec_chunk]
+    h_l, w_l = c_hl[rec_chunk], c_wl[rec_chunk]
+    da, dx, dy = (torch.zeros(len(key)) for _ in range(3))
+    windows = torch.zeros(n_chunks * win * win, d)
+    for cy, cx in ((0, 0), (0, 1), (1, 0), (1, 1)):
+        wx, wy = (rec_fx if cx else 1 - rec_fx), (rec_fy if cy else 1 - rec_fy)
+        dot = (gv * vwin[rec_chunk, (ly + 1 + cy) * side + lx + 1 + cx]).sum(-1)
+        da += wx * wy * dot
+        dx += (1 if cx else -1) * wy * dot
+        dy += wx * (1 if cy else -1) * dot
+        # the flush's validity: from the window cell and the level's size
+        ok = ((lx + cx >= 0) & (ox + lx + cx < w_l) & (ly + cy >= 0) & (oy + ly + cy < h_l))
+        cell = rec_chunk * win * win + (ly + cy) * win + lx + cx
+        windows.index_add_(0, cell[ok], ((wx * wy * rec_a)[:, None] * gv)[ok])
+    rec_out = torch.stack((da, rec_a * dx * w_l, rec_a * dy * h_l), 1)
+
+    # the flush: each window's cells inside the level into d_value
+    rows, inside = cells(win, 0)
+    d_value = torch.zeros(b * s * h, d)
+    d_value.index_add_(0, rows[inside], windows.reshape(n_chunks, win * win, d)[inside])
     d_attn = torch.zeros(flat.numel())
     d_loc = torch.zeros(flat.numel(), 2)
     d_attn[rec_sample] = rec_out[:, 0]
     d_loc[rec_sample] = rec_out[:, 1:]
-    return d_value, d_loc.reshape(loc.shape), d_attn.reshape(attn.shape)
+    return d_value.reshape(b, s, h, d), d_loc.reshape(loc.shape), d_attn.reshape(attn.shape)
 
 
 @pytest.mark.parametrize("case, tile, chunk", [

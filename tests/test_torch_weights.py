@@ -83,8 +83,9 @@ def test_load_model_reads_reference_checkpoint(tiny_pair, tmp_path):
     overrides = {f: getattr(pcfg, f) for f in (
         "hidden_dim", "nheads", "dim_feedforward", "enc_layers", "dec_layers", "num_queries",
         "max_text_len", "max_categories", "swin_config", "bert_config")}
-    lm = load_model(str(tmp_path / "ckpt.pth"), str(tmp_path / "vocab.txt"), device="cpu",
-                    dtype="float32", **overrides)
+    lm = load_model(str(tmp_path / "ckpt.pth"), str(tmp_path / "vocab.txt"),
+                    preset="dualzerorepbranchgroundingdino", device="cpu", dtype="float32",
+                    **overrides)
     assert lm.tokenizer.vocab == vocab and lm.device == torch.device("cpu")
     for k, v in lm.model.state_dict().items():
         np.testing.assert_array_equal(v.numpy(), sd[k].numpy(), err_msg=k)

@@ -61,6 +61,20 @@ def random_params(shape_tree, seed: int = 0):
     return jax.tree_util.tree_map_with_path(leaf, shape_tree)
 
 
+def random_stats(shape_tree, seed: int = 0):
+    """Seeded BatchNorm statistics for a flax `batch_stats` shape tree: means
+    ~ N(0, 0.1), variances ~ U(0.5, 1.5)."""
+    rng = np.random.RandomState(seed + 1000)
+
+    def leaf(path, s):
+        name = str(getattr(path[-1], "key", path[-1]))
+        if name.endswith("var"):
+            return rng.uniform(0.5, 1.5, s.shape).astype(np.float32)
+        return (0.1 * rng.randn(*s.shape)).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(leaf, shape_tree)
+
+
 def jax_inputs(b: int = 2):
     pixels, mask = tiny_image_batch(b=b)
     captions = ("cat.dog.", "zebra.person.fish.")[:b]
@@ -74,7 +88,9 @@ def torch_text(tb):
 
 
 class TinyPair:
-    """The tiny JAX model and the port built with the same parameters."""
+    """The tiny JAX model and the port built with the same parameters (and,
+    for the repconvbn variant, the same BatchNorm statistics: `stats`, the
+    JAX `batch_stats` collection, reaches the port's buffers)."""
 
     def __init__(self, seed: int = 0, **overrides):
         from ziragroundingdino_tpu.models.groundingdino import GroundingDINO
@@ -85,8 +101,17 @@ class TinyPair:
         shapes = jax.eval_shape(self.jmodel.init, jax.random.PRNGKey(0),
                                 jnp.asarray(self.pixels), jnp.asarray(self.mask), self.text)
         self.params = random_params(shapes["params"], seed)
+        self.stats = random_stats(shapes["batch_stats"], seed) if "batch_stats" in shapes else {}
         self.port = build_model(port_config(self.cfg), device="cpu", dtype="float32")
-        self.port.load_state_dict(jax_params_to_state_dict(self.params), strict=True)
+        self.port.load_state_dict(jax_params_to_state_dict(self.params, self.stats), strict=True)
+
+    def variables(self, params=None):
+        """The JAX model's variables: `params` (default: the pair's) and
+        the batch statistics where the model has them."""
+        out = {"params": self.params if params is None else params}
+        if self.stats:
+            out["batch_stats"] = self.stats
+        return out
 
 
 @pytest.fixture(scope="module")

@@ -3,15 +3,16 @@
 The port's own copy of the part of the JAX package's `config.py` that
 its serving, training and lifecycle paths read: `SwinConfig`, `BertConfig`,
 `GroundingDINOConfig`, `DataConfig`, `TrainConfig`, `load_config_overrides`
-and the `dualzerorepbranchgroundingdino` preset (the ZiRa headline model,
-`GroundingDINO_SwinT_OGC_rep.py` in the reference). Field names and defaults
-are those of the JAX package, so one set of overrides configures both.
+and the presets of the vanilla model and of the ZiRa family
+(`MODEL_PRESETS`). Field names and defaults are those of the JAX package,
+so one set of overrides configures both.
 `OptimizerConfig` and `ScheduleConfig` are the train step's
 (`train/optim.py`), `TrainConfig` the trainer's (`train/trainer.py`). `compute_dtype` names a `torch.dtype`; there is no
-`msda_impl`: the port has one MSDA and dispatches on the device. The
-switches that select another preset's architecture (`use_cet`,
-`use_project_adapter`, `use_fusion_layer`, `two_stage_type`, ...) are not
-fields: the port builds this preset's architecture only.
+`msda_impl`: the port has one MSDA and dispatches on the device. Of the
+switches that select an architecture, the port keeps those of its presets
+(`use_cet`, `use_project_adapter`, `zira_lan_adapter`); the others
+(`use_adapter`, `use_prompt`, `use_cls_linear`, `backbone`, ...) belong to
+presets it does not build yet (`UNPORTED_PRESETS`).
 """
 
 from __future__ import annotations
@@ -103,13 +104,22 @@ class GroundingDINOConfig:
     use_add_names: bool = False
     use_learned_names: bool = False
     num_select_prompt: int = 20
-    # ZiRa zero-interference losses (`GroundingDINO_SwinT_OGC_rep.py:62-96`)
+    # the language-side branch (the CET adapter of the dt model; the ZiRa
+    # language branch in the ZiRa family, `groundingdino_dt.py:182-206`)
+    use_cet: bool = True
+    # ZiRa (`GroundingDINO_SwinT_OGC_rep.py:62-96`): the vision branches and
+    # the zero-interference losses
     use_zero_inter_loss: bool = True
+    use_project_adapter: bool = True
     use_zero_inter_loss_for_conv: bool = True
     loss_adapter_weight: float = 0.1
     zira_zero_init: float = 1e-8
     zira_lan_scale: float = 0.1
     zira_vis_scale: float = 0.1
+    # the ZiRa language branch's shape: "linear" (RepZeroLinear) or "lora"
+    # (RepZeroLoRA, `groundingdino_dual_zero_rep_branch.py:251-253`)
+    zira_lan_adapter: str = "linear"
+    zira_lora_down_dim: Optional[int] = None  # None: in_features // 4
     pixel_mean: Tuple[float, float, float] = (123.675, 116.28, 103.53)
     pixel_std: Tuple[float, float, float] = (58.395, 57.12, 57.375)
     # compute dtype of the matmul-heavy paths; parameters stay float32
@@ -140,15 +150,34 @@ class GroundingDINOConfig:
 
 
 MODEL_PRESETS: Dict[str, GroundingDINOConfig] = {
+    # vanilla inference model (`GroundingDINO_SwinT_OGC.py`): no branch at all
+    "groundingdino": GroundingDINOConfig(
+        modelname="groundingdino", use_cet=False, use_project_adapter=False,
+        use_zero_inter_loss=False, use_zero_inter_loss_for_conv=False),
     # ZiRa headline model (`GroundingDINO_SwinT_OGC_rep.py`)
     "dualzerorepbranchgroundingdino": GroundingDINOConfig(),
+    # multilayer-branch variant (`groundingdino_dual_zero_rep_multilayer_branch.py:971`)
+    "dualzerorepmultilayerbranchgroundingdino": GroundingDINOConfig(
+        modelname="dualzerorepmultilayerbranchgroundingdino"),
+    # single-path rep variants, vision branches only (`groundingdino_repconv.py:1041`,
+    # `groundingdino_repconvbn.py:1069`)
+    "repgroundingdino": GroundingDINOConfig(
+        modelname="repgroundingdino", use_cet=False, use_zero_inter_loss=False),
+    "repconvbngroundingdino": GroundingDINOConfig(
+        modelname="repconvbngroundingdino", use_cet=False, use_zero_inter_loss=False),
 }
+
+# presets of the JAX package that the port does not build yet: the PET
+# baselines and CAT, which need its CET, in-layer and MoE adapters
+UNPORTED_PRESETS = ("dtgroundingdino", "finetune", "linearprobe", "prompttune", "berttune",
+                    "projecttune", "catgroundingdino")
 
 
 def get_model_config(name: str, **overrides) -> GroundingDINOConfig:
     """Look up a preset by name and apply overrides."""
     if name not in MODEL_PRESETS:
-        raise KeyError(f"unknown preset {name!r}; the port has {sorted(MODEL_PRESETS)}")
+        raise KeyError(f"unknown preset {name!r}: the port has {sorted(MODEL_PRESETS)}; "
+                       f"not ported yet: {list(UNPORTED_PRESETS)}")
     cfg = MODEL_PRESETS[name]
     return cfg.replace(**overrides) if overrides else cfg
 

@@ -18,7 +18,7 @@ other module raises there, so no parameter is left unset.
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
+from typing import Callable, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -65,11 +65,12 @@ class Linear(nn.Linear):
     """`nn.Linear` that computes in `compute_dtype` (None: the input's dtype).
 
     init: "torch" (nn.Linear's default, U(+-1/sqrt(in)) on weight and bias),
-    "xavier" (xavier-uniform weight, zero bias) or "zeros".
+    "xavier" (xavier-uniform weight, zero bias), "zeros", or a float that
+    fills weight and bias (the ZiRa branches' 1e-8).
     """
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
-                 compute_dtype: Optional[torch.dtype] = None, init: str = "torch"):
+                 compute_dtype: Optional[torch.dtype] = None, init: Union[str, float] = "torch"):
         super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = compute_dtype
         self.init = init
@@ -93,6 +94,10 @@ class Linear(nn.Linear):
                 self.weight.zero_()
                 if self.bias is not None:
                     self.bias.zero_()
+            elif isinstance(self.init, float):
+                self.weight.fill_(self.init)
+                if self.bias is not None:
+                    self.bias.fill_(self.init)
             else:
                 raise ValueError(f"unknown init {self.init!r}")
 

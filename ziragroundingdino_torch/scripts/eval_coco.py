@@ -21,12 +21,15 @@ from typing import Dict, List, Optional
 
 
 def main(argv: Optional[List[str]] = None) -> Dict:
+    from ziragroundingdino_torch.config import MODEL_PRESETS
+
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--checkpoint", required=True)
     ap.add_argument("--vocab", required=True)
     ap.add_argument("--json", required=True, help="COCO/LVIS instances json")
     ap.add_argument("--image-root", required=True)
-    ap.add_argument("--preset", default="dualzerorepbranchgroundingdino")
+    ap.add_argument("--preset", default="dualzerorepbranchgroundingdino",
+                    choices=sorted(MODEL_PRESETS), help="a preset of config.MODEL_PRESETS")
     ap.add_argument("--batch-size", type=int, default=2)
     ap.add_argument("--max-images", type=int, default=0,
                     help="evaluate only the first N images (0 = all)")

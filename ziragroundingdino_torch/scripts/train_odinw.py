@@ -32,13 +32,16 @@ LEFT_OUT = ("Not ported yet (multi-GPU training): --mesh (data/tensor/sequence "
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    from ziragroundingdino_torch.config import MODEL_PRESETS
+
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0], epilog=LEFT_OUT)
     ap.add_argument("--checkpoint", required=True, help="reference-format .pth")
     ap.add_argument("--vocab", required=True, help="bert-base-uncased vocab.txt")
     ap.add_argument("--datasets-root", default="datasets/odinw")
     ap.add_argument("--suite", default="odinw13", choices=["odinw13", "odinw35"])
     ap.add_argument("--shot", default="full", choices=["full", "1shot", "5shot", "10shot"])
-    ap.add_argument("--preset", default="dualzerorepbranchgroundingdino")
+    ap.add_argument("--preset", default="dualzerorepbranchgroundingdino",
+                    choices=sorted(MODEL_PRESETS), help="a preset of config.MODEL_PRESETS")
     ap.add_argument("--output-dir", default="./output/odinw")
     ap.add_argument("--batch-size", type=int, default=2)
     ap.add_argument("--lr", type=float, default=1e-3)

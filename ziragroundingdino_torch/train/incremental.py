@@ -4,7 +4,8 @@
 * tasks in sequence, each chaining the weights of the one before (`:473-494`);
 * `before_train`: every parameter frozen but the adapters
   (`groundingdino_dual_zero_rep_branch.py:722-737`), in the trainer's setup;
-* `after_train`: `rep_merge` of every RepZero module (`:739-745`), then the
+* `after_train`: `rep_merge` of every ZiRa module that has a scaling
+  (`:739-745`; as in the JAX package, a repconvbn branch is not folded), then the
   task's class prompts into the prompt memory (`train_multidatasets.py:
   221-228` -> `groundingdino_dt.py:379-437`);
 * the prompt memory: per-class text-token embeddings, and the text replay
@@ -245,7 +246,8 @@ def run_replay_phase(state: IncrementalState, model: GroundingDINO,
         losses = replay_memory_loss(model, tokenizer, learned, state.prompt_memory,
                                     cfg.max_text_len)
         total = sum(losses.values())
-        total.backward()
+        if total.requires_grad:  # a model without a language branch has no gradient here
+            total.backward()
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)

@@ -31,7 +31,12 @@ def trainable_patterns_for_cfg(cfg) -> Tuple[str, ...]:
     """The reference's before_train unfreeze matrix (`groundingdino_dt.py:
     775-783`): "adapter" always, plus the module groups of the PET
     baselines' switches (`use_bert_tuning`, `use_cls_linear`,
-    `use_project_tuning`), which a config without them leaves off."""
+    `use_project_tuning`), which a config without them leaves off. For the
+    ZiRa family that is every parameter of the branches, the freeze
+    branches (soft-frozen by an lr factor) and the multilayer variant's
+    `freeze_gn` included; ZeroConvBN's running statistics are buffers, not
+    parameters. The vanilla `groundingdino` has no such parameter: it
+    serves only, and `Optimizer` refuses it."""
     pats = ["adapter"]
     if getattr(cfg, "use_bert_tuning", False):
         pats += ["bert", "feat_map"]

@@ -58,12 +58,13 @@ def compute_losses(model: GroundingDINO, batch: Dict[str, torch.Tensor],
     total = weighted_total(losses)
 
     # ZiRa zero-interference losses (`groundingdino_dual_zero_rep_branch.py:
-    # 584-587`), weighted by loss_adapter_weight
+    # 584-587`), weighted by loss_adapter_weight, where the preset has the
+    # branch and the loss (`train/step.py:76-88` of the JAX package)
     al = out["adapter_losses"]
-    if cfg.use_zero_inter_loss_for_conv:
+    if cfg.use_project_adapter and cfg.use_zero_inter_loss_for_conv:
         losses["loss_conv_adapter"] = al["loss_conv_adapter"] * cfg.loss_adapter_weight
         total = total + losses["loss_conv_adapter"]
-    if cfg.use_zero_inter_loss:
+    if cfg.use_cet and cfg.use_zero_inter_loss:
         losses["loss_linear_adapter"] = al["loss_linear_adapter"] * cfg.loss_adapter_weight
         total = total + losses["loss_linear_adapter"]
     losses["total_loss"] = total

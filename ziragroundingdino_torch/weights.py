@@ -12,6 +12,10 @@ becomes a pattern and the torch pattern a template. Layouts:
   * LayerNorm/GroupNorm scale/bias  -> weight/bias
   * in_proj_kernel [E, 3E]          -> in_proj_weight [3E, E]
   * ZiRa branch_*/freeze_*          -> weight, bias / freeze_linear|freeze_conv.*
+  * RepZeroLoRA down/up_kernel      -> down.weight / up.weight
+  * RepZeroConvGN freeze_gn_*       -> freeze_gn.weight / .bias
+  * ZeroConvBN branch_* / bn_*      -> branch.conv.* / branch.bn.weight|bias,
+    and its `batch_stats` bn_mean / bn_var -> branch.bn.running_mean / _var
 The box head shared by every decoder layer is one JAX entry
 (`bbox_embed`); the state_dict repeats it under `bbox_embed.{i}` and
 `transformer.decoder.bbox_embed.{i}` for each decoder layer, as the
@@ -21,7 +25,7 @@ reference's does.
 from __future__ import annotations
 
 import re
-from typing import Dict, List, Mapping, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -99,12 +103,29 @@ _rule(r"input_proj\.(\d+)\.0\.weight$", r"input_proj_\1/conv/kernel", _CONV)
 _rule(r"input_proj\.(\d+)\.0\.bias$", r"input_proj_\1/conv/bias")
 _ln_rules(r"input_proj\.(\d+)\.1", r"input_proj_\1/norm")
 
-# ---- ZiRa rep branches
-_rule(r"rep_linear_adapter\.weight$", "rep_linear_adapter/branch_kernel", _LIN)
-_rule(r"rep_linear_adapter\.bias$", "rep_linear_adapter/branch_bias")
-_rule(r"rep_linear_adapter\.scaling$", "rep_linear_adapter/scaling")
-_rule(r"rep_linear_adapter\.freeze_linear\.weight$", "rep_linear_adapter/freeze_kernel", _LIN)
-_rule(r"rep_linear_adapter\.freeze_linear\.bias$", "rep_linear_adapter/freeze_bias")
+# ---- ZiRa rep branches (the language branch of the dual and the
+# multilayer variant, and RepZeroLoRA's bias-free factors)
+for _ln in ("rep_linear_adapter", "rep_language_adapter"):
+    _rule(rf"{_ln}\.weight$", f"{_ln}/branch_kernel", _LIN)
+    _rule(rf"{_ln}\.bias$", f"{_ln}/branch_bias")
+    _rule(rf"{_ln}\.scaling$", f"{_ln}/scaling")
+    _rule(rf"{_ln}\.freeze_linear\.weight$", f"{_ln}/freeze_kernel", _LIN)
+    _rule(rf"{_ln}\.freeze_linear\.bias$", f"{_ln}/freeze_bias")
+    _rule(rf"{_ln}\.down\.weight$", f"{_ln}/down_kernel", _LIN)
+    _rule(rf"{_ln}\.up\.weight$", f"{_ln}/up_kernel", _LIN)
+_rule(r"input_proj_conv_adapter\.(\d+)\.freeze_gn\.weight$",
+      r"input_proj_conv_adapter_\1/freeze_gn_scale")
+_rule(r"input_proj_conv_adapter\.(\d+)\.freeze_gn\.bias$",
+      r"input_proj_conv_adapter_\1/freeze_gn_bias")
+_rule(r"input_proj_conv_adapter\.(\d+)\.branch\.bn\.weight$",
+      r"input_proj_conv_adapter_\1/bn_scale")
+_rule(r"input_proj_conv_adapter\.(\d+)\.branch\.bn\.bias$",
+      r"input_proj_conv_adapter_\1/bn_bias")
+# the BN statistics live in JAX's `batch_stats` collection
+_rule(r"input_proj_conv_adapter\.(\d+)\.branch\.bn\.running_mean$",
+      r"<stats>input_proj_conv_adapter_\1/bn_mean")
+_rule(r"input_proj_conv_adapter\.(\d+)\.branch\.bn\.running_var$",
+      r"<stats>input_proj_conv_adapter_\1/bn_var")
 _rule(r"input_proj_conv_adapter\.(\d+)\.weight$",
       r"input_proj_conv_adapter_\1/branch_kernel", _CONV)
 _rule(r"input_proj_conv_adapter\.(\d+)\.bias$", r"input_proj_conv_adapter_\1/branch_bias")
@@ -113,6 +134,11 @@ _rule(r"input_proj_conv_adapter\.(\d+)\.freeze_conv\.weight$",
       r"input_proj_conv_adapter_\1/freeze_kernel", _CONV)
 _rule(r"input_proj_conv_adapter\.(\d+)\.freeze_conv\.bias$",
       r"input_proj_conv_adapter_\1/freeze_bias")
+# ZeroConvBN names its branch conv `branch.conv`, where the other vision
+# branches hold it as the module's own weight and bias: the same JAX leaf
+# (`branch_kernel`) maps to either, by whether the module has a `bn_scale`
+# (`_convbn_names`)
+_CONVBN = re.compile(r"(input_proj_conv_adapter\.\d+)\.(weight|bias)$")
 
 # ---- transformer top level
 _rule(r"transformer\.level_embed$", "transformer/level_embed")
@@ -206,15 +232,33 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
-def jax_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+def _convbn_names(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The branch conv of every ZeroConvBN (a module with `branch.bn.weight`)
+    under `branch.conv.*`; every other key as it is."""
+    out = {}
+    for key, v in sd.items():
+        m = _CONVBN.match(key)
+        if m is not None and f"{m.group(1)}.branch.bn.weight" in sd:
+            key = f"{m.group(1)}.branch.conv.{m.group(2)}"
+        out[key] = v
+    return out
+
+
+def jax_params_to_state_dict(params: Mapping, batch_stats: Optional[Mapping] = None
+                             ) -> Dict[str, torch.Tensor]:
     """Flax params (nested dict of arrays, the "params" collection or a dict
-    holding it) -> state_dict with the reference's keys, float32 tensors.
+    holding it, and with it its "batch_stats" collection, or those passed as
+    `batch_stats`) -> state_dict with the reference's keys, float32 tensors.
     Raises on a leaf that no rule maps."""
     if "params" in params and isinstance(params["params"], Mapping):
+        if batch_stats is None:
+            batch_stats = params.get("batch_stats")
         params = params["params"]
+    leaves = dict(_flatten(params))
+    leaves.update({"<stats>" + k: v for k, v in _flatten(batch_stats or {}).items()})
     sd: Dict[str, torch.Tensor] = {}
     unmapped = []
-    for path, leaf in _flatten(params).items():
+    for path, leaf in leaves.items():
         for pattern, template, layout in _INVERSE:
             m = pattern.match(path)
             if m is not None:
@@ -226,6 +270,7 @@ def jax_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
             unmapped.append(path)
     if unmapped:
         raise KeyError(f"no rule maps these JAX parameters: {unmapped[:10]}")
+    sd = _convbn_names(sd)
     dec_layers = len({k.split(".")[3] for k in sd if k.startswith("transformer.decoder.layers.")})
     for key in [k for k in sd if k.startswith("bbox_embed.0.")]:
         rest = key[len("bbox_embed.0."):]
