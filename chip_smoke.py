@@ -46,8 +46,8 @@ Phases, in order (any failure raises, and the script exits non-zero):
      from a CUDA generator: finite losses, 12 `msda_forward` and 12
      `msda_backward` launches per step (the 6 encoder calls by the binned
      passes, the 6 decoder calls by the single-pass kernel), frozen weights
-     unchanged, every ZiRa
-     branch moved; ms per step and peak memory; with --profile, a step's
+     unchanged, every ZiRa branch given a gradient that is not all zero by
+     the backward and moved; ms per step and peak memory; with --profile, a step's
      device busy time, idle share and top kernels;
   6. the ZiRa lifecycle at full width: the port's ODinW driver
      (`ziragroundingdino_torch.scripts.train_odinw.main`) on a seeded
@@ -82,7 +82,26 @@ Phases, in order (any failure raises, and the script exits non-zero):
        each freeze tensor the formula of its kind, and for the repconv and
        LoRA configurations eval after the merge against train mode before
        it on the batch; the warm step, peak memory and merge time;
-  8. result: a `kernels` JSON line, the nvidia-smi line, and last
+  8. the PET baselines and CAT at full width:
+     8a. each of `dtgroundingdino`, `finetune`, `linearprobe`, `prompttune`,
+       `berttune`, `projecttune` and `catgroundingdino`, its zero-init
+       adapter and MoE weights seeded: one `predict` request on phase 5's
+       image (12 `msda_forward` launches), 2 train steps with dropout on
+       phase 5b's batch (24 `msda_forward` launches, and 24 `msda_backward`
+       with 12 binned where a gradient reaches MSDA: not in `linearprobe`,
+       whose trainable heads sit after the decoder, nor in `prompttune`,
+       which trains nothing), finite losses (CAT's `loss_adapter` > 0),
+       frozen weights bitwise unchanged, every trainable one given a
+       gradient that is not all zero by the backward (but ZERO_GRADIENT's,
+       0 by construction: CAT's one-expert MoE gate, BERT's key biases;
+       the box heads' zero-init last layers seeded) and moved (Swin's and BERT's in
+       `finetune`; none in `prompttune`);
+     8b. `scripts/train_odinw.main --preset dtgroundingdino` on phase 6's
+       two synthetic tasks, 2 steps each, the second task's caption with
+       the first's classes, prompt capture and eval: only the CET adapter
+       changes; a `phase 8: {...}` line with each preset's request ms,
+       warm step ms, peak memory and launches;
+  9. result: a `kernels` JSON line, the nvidia-smi line, and last
      `{"ok": true, "device": {...}}`.
 
 It needs a CUDA card and the repository's `ziragroundingdino_torch` package
@@ -705,6 +724,34 @@ def phase_main_path(build_model, inference, tokenizer_mod, transforms, pc, msda_
     return launches, (model, lm, pixels, mask, captions)
 
 
+def record_gradients(opt):
+    """Wraps `opt.step` so that each step first records, per trainable
+    tensor, the largest |gradient| the backward left on it (0 where it left
+    none), before `Optimizer.step` gives a tensor without one a zero
+    gradient that AdamW's weight decay then moves it by. Returns a function
+    that ends the recording (so that no reference cycle keeps `opt` and its
+    state alive) and gives the names whose gradient was all zero, or
+    absent, in every step."""
+    names = list(opt.params)
+    peak = torch.zeros(len(names), device="cuda")
+    step = opt.step
+
+    def recording():
+        idx = [i for i, n in enumerate(names) if opt.params[n].grad is not None]
+        if idx:
+            norms = torch._foreach_norm([opt.params[names[i]].grad for i in idx], float("inf"))
+            at = torch.tensor(idx, device=peak.device)
+            peak[at] = torch.maximum(peak[at], torch.stack(norms).float())
+        return step()
+
+    def ungraded():
+        del opt.step
+        return [n for n, v in zip(names, peak.tolist()) if not v > 0]
+
+    opt.step = recording
+    return ungraded
+
+
 def phase_train_main_path(build_model, optim, step, tokenizer_mod, transforms, pc, msda_forward,
                           msda_backward, card_line, profile_dir=None):
     """TRAIN_STEPS train steps of the full-width preset on one synthetic
@@ -719,6 +766,7 @@ def phase_train_main_path(build_model, optim, step, tokenizer_mod, transforms, p
     opt = optim.Optimizer(model, pc.OptimizerConfig(), pc.ScheduleConfig())
     frozen = {n: p.detach().clone() for n, p in model.named_parameters() if not p.requires_grad}
     start = {n: p.detach().clone() for n, p in opt.params.items()}
+    ungraded = record_gradients(opt)
     n_train = sum(p.numel() for p in opt.params.values())
     log(f"train path: built the preset in {time.time() - t0:.1f} s; "
         f"{len(opt.params)} trainable tensors ({n_train / 1e6:.2f} M parameters), "
@@ -764,13 +812,16 @@ def phase_train_main_path(build_model, optim, step, tokenizer_mod, transforms, p
     moved = [n for n, p in opt.params.items() if not torch.equal(p.detach(), start[n])]
     changed = [n for n, p in model.named_parameters()
                if not p.requires_grad and not torch.equal(p.detach(), frozen[n])]
+    no_grad = ungraded()
     log(f"train path: {TRAIN_STEPS} steps at 800x1216, bf16, per-step ms "
         f"{[round(x, 2) for x in step_ms]} (first includes warm-up), warm median "
         f"{statistics.median(step_ms[1:]):.2f} ms, peak memory {peak / 2**30:.2f} GiB; "
-        f"{len(moved)} of {len(opt.params)} trainable tensors moved, {len(changed)} frozen "
-        f"changed; on {card_line}")
+        f"{len(opt.params) - len(no_grad)} of {len(opt.params)} trainable tensors given a "
+        f"gradient, {len(moved)} moved, {len(changed)} frozen changed; on {card_line}")
     if changed:
         raise AssertionError(f"frozen parameters changed: {changed[:5]}")
+    if no_grad:
+        raise AssertionError(f"the backward gave no gradient to trainable {no_grad}")
     if len(moved) != len(opt.params):
         raise AssertionError(f"trainable parameters did not move: "
                              f"{sorted(set(opt.params) - set(moved))[:5]}")
@@ -1422,6 +1473,265 @@ def _train_and_merge(label, preset, extra, build_model, optim, step, tokenizer_m
     return got, numbers
 
 
+# ---------------------------------------------------------------------------
+# 8. the PET baselines and CAT at full width
+# ---------------------------------------------------------------------------
+
+PET_PRESETS = ("dtgroundingdino", "finetune", "linearprobe", "prompttune", "berttune",
+               "projecttune", "catgroundingdino")
+PET_STEPS = 2
+# presets in which no gradient reaches MSDA (the trainable heads of
+# linearprobe read the decoder's output and the detached anchors; prompttune
+# trains nothing), so their steps launch no `msda_backward`
+PET_NO_MSDA_GRAD = ("linearprobe", "prompttune")
+# trainable tensors whose gradient is 0 by construction, so the backward
+# may leave them none: with one expert (`num_experts=1`) CAT's MoE gate is a
+# softmax over one logit; BERT's attention key biases shift every logit of
+# a softmax row alike (0 in exact arithmetic: bf16 rounding leaves 0 or a
+# few ulps)
+ZERO_GRADIENT = ("prompt_adapter.adapter_moe.w_gate", "prompt_adapter.adapter_moe.w_noise",
+                 "attention.self.key.bias")
+PET_TASKS = tuple(LIFECYCLE_TASKS)  # phase 6's synthetic tasks
+PET_ITERS, PET_BATCH = 2, 2
+
+
+def _seeded_pet_modules(model, seed: int = 5):
+    """The zero-init weights of the PET and CAT modules drawn so that they
+    act: the adapters' up projections (`adapter_up`, `linear`,
+    `project_out`) and the MoE experts' `fc2` from N(0, 1 / fan_in), their
+    biases from N(0, 0.01), the MoE gate `w_gate` from N(0, 1 / d) and
+    `w_noise` from N(0, 0.01 / d); the box heads' last layers (`bbox_embed`,
+    `enc_out_bbox_embed`) from N(0, 0.01 / fan_in) and N(0, 0.01), so that
+    the first step's gradient reaches their first layers where they train
+    (later steps' two-stage queries can all sit where the box saturates).
+    `cls_linear` starts random already."""
+    from ziragroundingdino_torch.models.adapters import Adapter, LinearAdapter, TransformerAdapter
+    from ziragroundingdino_torch.models.moe import MoE
+
+    g = torch.Generator().manual_seed(seed)
+
+    def draw(t, std):
+        t.copy_(std * torch.randn(t.shape, generator=g))
+
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, Adapter):
+                ups = [mod.adapter_up]
+            elif isinstance(mod, LinearAdapter):
+                ups = [mod.linear]
+            elif isinstance(mod, TransformerAdapter):
+                ups = [mod.project_out]
+            elif isinstance(mod, MoE):
+                ups = [e.fc2 for e in mod.experts]
+                draw(mod.w_gate, mod.w_gate.shape[0] ** -0.5)
+                draw(mod.w_noise, 0.01 * mod.w_noise.shape[0] ** -0.5)
+            else:
+                continue
+            for lin in ups:
+                draw(lin.weight, lin.in_features ** -0.5)
+                draw(lin.bias, 0.01)
+        for lin in (model.bbox_embed[0].layers[-1], model.transformer.enc_out_bbox_embed.layers[-1]):
+            draw(lin.weight, 0.1 * lin.in_features ** -0.5)
+            draw(lin.bias, 0.01)
+
+
+def phase_pet(build_model, inference, optim, step, tokenizer_mod, transforms, pc, msda_forward,
+              msda_backward, card_line):
+    """8a: each of PET_PRESETS at full width, its zero-init weights seeded:
+    one `predict` request on phase 5's image, PET_STEPS train steps with
+    dropout on phase 5b's batch, and the checks. Returns {preset: launches}
+    and {preset: numbers}."""
+    launches, numbers = {}, {}
+    for preset in PET_PRESETS:
+        launches[preset], numbers[preset] = _serve_and_train(
+            preset, build_model, inference, optim, step, tokenizer_mod, transforms, pc,
+            msda_forward, msda_backward, card_line)
+        torch.cuda.empty_cache()
+    return launches, numbers
+
+
+def _serve_and_train(preset, build_model, inference, optim, step, tokenizer_mod, transforms, pc,
+                     msda_forward, msda_backward, card_line):
+    """One preset of phase 8a; returns (request launches, train launches)
+    and its numbers."""
+    t0 = time.time()
+    model = build_model(preset, device="cuda", dtype="bfloat16", seed=0)
+    _seeded_pet_modules(model)
+    cfg = model.cfg
+    n_layers = cfg.enc_layers + cfg.dec_layers
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+
+    # one request
+    lm = inference.LoadedModel(model=model, tokenizer=tokenizer_mod.WordPieceTokenizer(
+        tokenizer_mod.make_synthetic_vocab(REQUEST_WORDS)))
+    pixels, mask = synthetic_image(transforms, pc)
+    msda_forward.launches = msda_backward.launches = msda_backward.binned_launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _, out = _request_outputs(inference, lm, pixels, mask, REQUEST_CAPTIONS[0])
+    torch.cuda.synchronize()
+    request_ms = (time.perf_counter() - t) * 1e3
+    served = (msda_forward.launches, msda_backward.launches)
+    if served != (n_layers, 0):
+        raise AssertionError(f"{preset}: a request launched (forward, backward) {served}")
+    if not (torch.isfinite(out["pred_logits"]).all() and torch.isfinite(out["pred_boxes"]).all()):
+        raise AssertionError(f"{preset}: non-finite detections")
+    if tuple(out["pred_boxes"].shape) != (1, cfg.num_queries, 4):
+        raise AssertionError(f"{preset}: pred_boxes shape {tuple(out['pred_boxes'].shape)}")
+
+    # PET_STEPS train steps
+    optim.set_trainable(model, optim.trainable_patterns_for_cfg(cfg), freeze_all=cfg.freeze_all)
+    opt = optim.Optimizer(model, pc.OptimizerConfig(), pc.ScheduleConfig())
+    words = ["person", "dog", "cat", "car"]
+    tok = tokenizer_mod.WordPieceTokenizer(tokenizer_mod.make_synthetic_vocab(words))
+    tb = tokenizer_mod.tokenize_captions(tok, [" . ".join(words) + " ."],
+                                         max_text_len=cfg.max_text_len,
+                                         max_categories=cfg.max_categories)
+    batch = train_batch(tb, pixels, mask, "cuda", n_labels=len(words))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters() if not p.requires_grad}
+    start = {n: p.detach().clone() for n, p in opt.params.items()}
+    ungraded = record_gradients(opt)
+    step_ms = []
+    torch.cuda.reset_peak_memory_stats()
+    msda_forward.launches = msda_backward.launches = msda_backward.binned_launches = 0
+    for i in range(PET_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        metrics = step.train_step(model, opt, batch, gen)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        bad = {k: v.item() for k, v in metrics.items() if not torch.isfinite(v).all()}
+        if bad:
+            raise AssertionError(f"{preset}: step {i} non-finite {bad}")
+    peak = torch.cuda.max_memory_allocated()
+    trained = (msda_forward.launches, msda_backward.launches, msda_backward.binned_launches)
+    grads = 0 if preset in PET_NO_MSDA_GRAD else 1
+    want = (n_layers * PET_STEPS, grads * n_layers * PET_STEPS,
+            grads * cfg.enc_layers * PET_STEPS)
+    if trained != want:
+        raise AssertionError(f"{preset}: train msda launches {trained}, not {want}")
+    if cfg.use_adapter and not metrics["loss_adapter"].item() > 0:
+        raise AssertionError(f"{preset}: loss_adapter {metrics['loss_adapter'].item()}")
+    changed = [n for n, p in model.named_parameters()
+               if not p.requires_grad and not torch.equal(p.detach(), frozen[n])]
+    if changed:
+        raise AssertionError(f"{preset}: frozen parameters changed {changed[:5]}")
+    no_grad = sorted(ungraded())
+    missed = [n for n in no_grad if not n.endswith(ZERO_GRADIENT)]
+    if missed:
+        raise AssertionError(f"{preset}: the backward gave no gradient to trainable {missed}")
+    still = sorted(n for n, p in opt.params.items() if torch.equal(p.detach(), start[n]))
+    if still:
+        raise AssertionError(f"{preset}: trainable parameters did not move: {still[:5]}")
+    if preset == "finetune":
+        for part in ("backbone.0.layers.0.blocks.0.attn.qkv.weight",
+                     "bert.encoder.layer.0.attention.self.query.weight"):
+            if part not in opt.params:
+                raise AssertionError(f"finetune: {part} does not train")
+    if preset == "prompttune" and (opt.params or metrics["grad_norm"].item() != 0.0):
+        raise AssertionError("prompttune trained")
+    losses = {k: round(v.item(), 4) for k, v in metrics.items() if k in
+              ("total_loss", "loss_adapter")}
+    numbers = {"request_ms": request_ms, "step_ms": step_ms, "warm_step_ms": step_ms[-1],
+               "peak_memory_gib": peak / 2**30, "trainable_tensors": len(opt.params),
+               "trainable_m": sum(p.numel() for p in opt.params.values()) / 1e6,
+               "train_launches": trained}
+    log(f"pet {preset}: built in {build_s:.1f} s; request {request_ms:.1f} ms ({served[0]} "
+        f"msda_forward launches); {len(opt.params)} trainable tensors "
+        f"({numbers['trainable_m']:.2f} M), {len(no_grad)} without a gradient, all "
+        f"zero by construction {no_grad}, none unmoved; {PET_STEPS} steps at 800x1216 bf16, "
+        f"per-step ms {[round(x, 2) for x in step_ms]}, peak {peak / 2**30:.2f} GiB; msda "
+        f"launches (forward, backward, binned) {trained}; losses {losses}; on {card_line}")
+    return (served[0], trained), numbers
+
+
+def phase_pet_driver(build_model, msda_forward, msda_backward, card_line):
+    """8b: `scripts/train_odinw.main --preset dtgroundingdino` at full width
+    from a seeded reference-format checkpoint of the dt model (its CET
+    adapter seeded) on phase 6's two synthetic tasks: PET_ITERS steps a task
+    at batch PET_BATCH, the second task's caption with the first task's
+    classes added (`use_add_names`), prompt capture, the eval of both.
+    Checks the launches, that only the CET adapter changed, the prompts and
+    the learned-name captions. Returns the launches and the numbers."""
+    from ziragroundingdino_torch.data import synthetic
+    from ziragroundingdino_torch.scripts import train_odinw
+    from ziragroundingdino_torch.text.tokenizer import make_synthetic_vocab
+    from ziragroundingdino_torch.train import incremental
+
+    root = pathlib.Path(__file__).resolve().parent / "build" / "phase8"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t0 = time.time()
+    model = build_model("dtgroundingdino", device="cpu", seed=0)
+    _seeded_pet_modules(model)
+    n_layers, n_enc = model.cfg.enc_layers + model.cfg.dec_layers, model.cfg.enc_layers
+    torch.save({"model": model.state_dict()}, root / "ckpt.pth")
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    del model
+    classes = [c for name in PET_TASKS for c in LIFECYCLE_TASKS[name][0]]
+    synthetic.write_vocab(str(root / "vocab.txt"), make_synthetic_vocab(classes))
+    for i, name in enumerate(PET_TASKS):
+        cls, n_train, n_test = LIFECYCLE_TASKS[name]
+        synthetic.write_odinw_task(str(root / "data"), name, cls, n_train, n_test,
+                                   LIFECYCLE_ORIG, seed=100 + 10 * i)
+    out = root / "out"
+    args = ["--checkpoint", str(root / "ckpt.pth"), "--vocab", str(root / "vocab.txt"),
+            "--datasets-root", str(root / "data"), "--tasks", ",".join(PET_TASKS),
+            "--output-dir", str(out), "--batch-size", str(PET_BATCH),
+            "--max-iter", str(PET_ITERS), "--checkpoint-period", str(PET_ITERS),
+            "--preset", "dtgroundingdino"]
+    captions = []
+    augment = incremental.augment_caption_with_learned_names
+
+    def recording(names, learned, *a, **kw):
+        captions.append(augment(names, learned, *a, **kw))
+        return captions[-1]
+
+    incremental.augment_caption_with_learned_names = recording
+    setup_s = time.time() - t0
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        msda_forward.launches = msda_backward.launches = msda_backward.binned_launches = 0
+        t = time.perf_counter()
+        report = train_odinw.main(args)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t
+    finally:
+        incremental.augment_caption_with_learned_names = augment
+    launches = (msda_forward.launches, msda_backward.launches, msda_backward.binned_launches)
+    peak = torch.cuda.max_memory_allocated()
+    steps = PET_ITERS * len(PET_TASKS)
+    batches = sum(-(-LIFECYCLE_TASKS[n][2] // PET_BATCH) for n in PET_TASKS)
+    want = (n_layers * (steps + batches), n_layers * steps, n_enc * steps)
+    log(f"pet driver: dtgroundingdino through train_odinw in {run_s:.1f} s ({steps} steps, "
+        f"{batches} eval batches); msda launches {launches}; captions {captions}; "
+        f"report {report}; peak {peak / 2**30:.2f} GiB; on {card_line}")
+    if launches != want:
+        raise AssertionError(f"pet driver: msda launches {launches}, not {want}")
+    keys = {f"AP/{n}" for n in PET_TASKS} | {"avg_AP"}
+    if set(report) != keys or not all(np.isfinite(v) for v in report.values()):
+        raise AssertionError(f"pet driver report {report}")
+    # the first task's caption is its classes; the second's adds them
+    if len(captions) != 2 or not set(captions[0]) < set(captions[1]):
+        raise AssertionError(f"the second task's caption lacks the first's classes: {captions}")
+    for name in PET_TASKS:
+        final = torch.load(out / name / "state_final.pt", map_location="cpu", weights_only=True)
+        params = final["params"]
+        changed = sorted(k for k, v in params.items() if not torch.equal(v, before[k]))
+        if not changed or any(not k.startswith("cet_adapter.") for k in changed):
+            raise AssertionError(f"task {name} changed {changed[:5]}")
+        missing = {f"-{c}-" for c in LIFECYCLE_TASKS[name][0]} - set(final["prompt_memory"])
+        if missing:
+            raise AssertionError(f"task {name}: no prompt for {missing}")
+        before = params
+    shutil.rmtree(root, ignore_errors=True)
+    return launches, {"run_s": run_s, "setup_s": setup_s, "peak_memory_gib": peak / 2**30,
+                      "report": report}
+
+
 def _merged_ms(intervals) -> float:
     """Length of the union of (start, end) intervals in microseconds, in ms."""
     total, end = 0.0, float("-inf")
@@ -1590,8 +1900,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     family_launches, family = phase_family(build_model, optim, step, tokenizer_mod, transforms,
                                            pc, msda_forward, msda_backward, card_line)
+    torch.cuda.empty_cache()
 
-    # 8. result
+    # 8. the PET baselines and CAT (8a), the dt model through the driver (8b)
+    t8 = time.time()
+    pet_launches, pet = phase_pet(build_model, inference, optim, step, tokenizer_mod,
+                                  transforms, pc, msda_forward, msda_backward, card_line)
+    torch.cuda.empty_cache()
+    pet_driver_launches, pet_driver = phase_pet_driver(build_model, msda_forward,
+                                                       msda_backward, card_line)
+    pet_s = time.time() - t8
+
+    # 9. result
     enc, dec = rec["encoder"], rec["decoder"]
     benc = rec_bwd["encoder", "binned"]  # the path of the main path's encoder calls
     kernels = [{
@@ -1616,6 +1936,9 @@ def main() -> int:
         "vanilla_serving_launches": vanilla_fwd,
         "zira_from_vanilla_launches": zira_from_vanilla_fwd,
         "family_train_launches": {k: v[0] for k, v in family_launches.items()},
+        "pet_serving_launches": {k: v[0] for k, v in pet_launches.items()},
+        "pet_train_launches": {k: v[1][0] for k, v in pet_launches.items()},
+        "pet_driver_launches": pet_driver_launches[0],
         "decoder": {k: dec[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
                                         "max_abs_err", "l2_gather_mb")},
         "decoder_timed_at": "decoder call, bf16 value, B=1 Q=900 S=20197 H=8 D=32 L=P=4",
@@ -1640,6 +1963,10 @@ def main() -> int:
         "lifecycle_binned_launches": life_binned,
         "family_train_launches": {k: v[1] for k, v in family_launches.items()},
         "family_train_binned_launches": {k: v[2] for k, v in family_launches.items()},
+        "pet_train_launches": {k: v[1][1] for k, v in pet_launches.items()},
+        "pet_train_binned_launches": {k: v[1][2] for k, v in pet_launches.items()},
+        "pet_driver_launches": pet_driver_launches[1],
+        "pet_driver_binned_launches": pet_driver_launches[2],
         "device_ms": benc["device_ms"],
         "launch_ms": benc["launch_ms"],
         "by_path": {f"{name} {path}": {k: v for k, v in r.items() if k != "bound_by"}
@@ -1652,6 +1979,10 @@ def main() -> int:
         "vanilla_serving": vanilla, "family": family,
         "at": "800x1216, bf16, batch 1; family: " + ", ".join(
             f"{label} = {preset} {extra or ''}".strip() for label, preset, extra in FAMILY)}))
+    log("phase 8: " + json.dumps({
+        "presets": pet, "driver": pet_driver, "phase_s": pet_s,
+        "at": "800x1216, bf16, batch 1, 1 request and 2 steps each; driver: dtgroundingdino, "
+              f"batch {PET_BATCH}, {len(PET_TASKS)} tasks x {PET_ITERS} steps, 600x800 originals"}))
     log(json.dumps({"kernels": kernels}))
     log(card_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

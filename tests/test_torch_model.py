@@ -46,7 +46,8 @@ def outputs(tiny_pair):
 def test_encoder_memory(outputs):
     _, inter, _, captured = outputs
     jmem, jtext, _ = inter["transformer"]["encoder"]["__call__"][0]
-    memory, memory_text = captured["encoder"]
+    memory, memory_text, adapter_loss = captured["encoder"]
+    assert adapter_loss.item() == 0.0  # the preset has no in-layer adapter
     assert_close(memory, jmem, ATOL, what="image memory")
     assert_close(memory_text, jtext, ATOL, what="text memory")
 

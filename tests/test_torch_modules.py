@@ -165,8 +165,10 @@ def test_encoder_and_text_layers(tiny_pair):
         {"params": enc["layers_0"]}, jnp.asarray(src), jnp.asarray(pos), jnp.asarray(ref),
         SHAPES, jnp.asarray(mask))
     with torch.inference_mode():
-        got = tp.port.transformer.encoder.layers[0](_t(src), _t(pos), _t(ref), SHAPES, _t(mask))
+        got, loss = tp.port.transformer.encoder.layers[0](_t(src), _t(pos), _t(ref), SHAPES,
+                                                          _t(mask))
     assert_close(got, want, ATOL, what="deformable encoder layer")
+    assert loss.item() == 0.0  # no in-layer adapter
 
     _, tmask, tpos, tattn = _text(tp)
     text = rng.randn(2, tmask.shape[1], cfg.hidden_dim).astype(np.float32)
@@ -196,9 +198,10 @@ def test_decoder_layer(tiny_pair):
         jnp.asarray(tgt), jnp.asarray(qpos), jnp.asarray(ref), jnp.asarray(memory),
         jnp.asarray(mmask), SHAPES, jnp.asarray(text), jnp.asarray(tmask))
     with torch.inference_mode():
-        got = tp.port.transformer.decoder.layers[0](
+        got, loss = tp.port.transformer.decoder.layers[0](
             _t(tgt), _t(qpos), _t(ref), _t(memory), _t(mmask), SHAPES, _t(text), _t(tmask))
     assert_close(got, want, ATOL)
+    assert loss.item() == 0.0  # no in-layer adapter
 
 
 def test_heads_and_zira(tiny_pair):

@@ -7,7 +7,7 @@ Each preset's tiny JAX model and the port get the same seeded parameters
 (and BatchNorm statistics) through the weight bridge; the forwards are held
 in the order of `tests/test_torch_model.py`: the encoder memory (1e-4), the
 selected queries (equal), then `pred_logits` / `pred_boxes` (1e-4). Then
-the presets the port does not build, `load_model`'s non-strict merge
+every preset's fields against the JAX package's, `load_model`'s non-strict merge
 against the JAX package's (a ZiRa model from a checkpoint without its ZiRa
 keys, unknown and mis-shaped keys reported), the port's demo end to end on
 the CPU, and `annotate` at the image's edges.
@@ -81,7 +81,7 @@ def served(request):
 
 
 def test_preset_encoder_memory(served):
-    case, _, _, inter, _, (memory, memory_text) = served
+    case, _, _, inter, _, (memory, memory_text, _) = served
     jmem, jtext, _ = inter["transformer"]["encoder"]["__call__"][0]
     assert_close(memory, jmem, ATOL, what=f"{case}: image memory")
     assert_close(memory_text, jtext, ATOL, what=f"{case}: text memory")
@@ -111,27 +111,33 @@ def test_preset_detections(served):
     assert names == want
 
 
-@pytest.mark.parametrize("name", pconfig.UNPORTED_PRESETS)
-def test_unported_presets_raise_naming_them(name):
-    """The seven presets of the JAX package that the port does not build
-    yet raise a KeyError that names them all."""
+def _field_gaps(port, ref):
+    """{field: (port's, JAX's)} of the port dataclass's fields that differ;
+    every field of the port's must be one of JAX's."""
+    names = [f.name for f in dataclasses.fields(port)]
+    assert set(names) <= {f.name for f in dataclasses.fields(ref)}
+    return {k: (getattr(port, k), getattr(ref, k)) for k in names
+            if k not in ("swin_config", "bert_config") and getattr(port, k) != getattr(ref, k)}
+
+
+@pytest.mark.parametrize("name", sorted(pconfig.MODEL_PRESETS))
+def test_port_presets_match_jax_presets(name):
+    """The port has the JAX package's 12 presets, and each equals JAX's
+    field for field (the Swin and BERT configs too): every field of the
+    port's configs is one of JAX's, with its value. `build_model` builds
+    the preset."""
     from ziragroundingdino_tpu.config import MODEL_PRESETS as JAX_PRESETS
 
-    assert set(JAX_PRESETS) == set(pconfig.MODEL_PRESETS) | set(pconfig.UNPORTED_PRESETS)
-    with pytest.raises(KeyError) as err:
-        build_model(name, device="cpu")
-    assert all(n in str(err.value) for n in pconfig.UNPORTED_PRESETS)
-    modelname = JAX_PRESETS[name].modelname
-    with pytest.raises(NotImplementedError, match=modelname):
-        build_model(pconfig.GroundingDINOConfig(modelname=modelname), device="cpu")
-
-
-def test_cet_on_a_rep_variant_raises():
-    """`use_cet` on a variant without a ZiRa language branch builds the CET
-    adapter in the JAX package, which the port does not have yet."""
-    cfg = pconfig.get_model_config("repgroundingdino", use_cet=True)
-    with pytest.raises(NotImplementedError, match="CET"):
-        build_model(cfg, device="cpu")
+    assert set(pconfig.MODEL_PRESETS) == set(JAX_PRESETS)
+    port, ref = pconfig.MODEL_PRESETS[name], JAX_PRESETS[name]
+    assert not _field_gaps(port, ref)
+    assert not _field_gaps(port.swin, ref.swin)
+    assert not _field_gaps(port.bert, ref.bert)
+    # the PET and CAT switches are among the compared fields
+    assert {"freeze_all", "use_adapter", "use_prompt", "use_cls_linear", "cet_type",
+            "num_experts"} <= {f.name for f in dataclasses.fields(port)}
+    model = build_model(name, device="cpu")  # full width, f32 parameters
+    assert model.cfg == port and len(model.transformer.decoder.layers) == 6
 
 
 def _zira_keys(sd):

@@ -8,11 +8,10 @@ and the presets of the vanilla model and of the ZiRa family
 so one set of overrides configures both.
 `OptimizerConfig` and `ScheduleConfig` are the train step's
 (`train/optim.py`), `TrainConfig` the trainer's (`train/trainer.py`). `compute_dtype` names a `torch.dtype`; there is no
-`msda_impl`: the port has one MSDA and dispatches on the device. Of the
-switches that select an architecture, the port keeps those of its presets
-(`use_cet`, `use_project_adapter`, `zira_lan_adapter`); the others
-(`use_adapter`, `use_prompt`, `use_cls_linear`, `backbone`, ...) belong to
-presets it does not build yet (`UNPORTED_PRESETS`).
+`msda_impl`: the port has one MSDA and dispatches on the device. The
+presets are the JAX package's 12; of the switches that select an
+architecture the port lacks `backbone` (Swin-T only) and
+`position_embedding` (sine only).
 """
 
 from __future__ import annotations
@@ -97,6 +96,7 @@ class GroundingDINOConfig:
     fusion_droppath: float = 0.1
     # train
     aux_loss: bool = True
+    freeze_all: bool = True  # False: every parameter trains (the finetune preset)
     # test: detections kept per image by the evaluator
     select_box_nums_for_evaluation: int = 200
     # task-agnostic caption augmentation (`groundingdino_dt.py:452-460`):
@@ -104,9 +104,20 @@ class GroundingDINOConfig:
     use_add_names: bool = False
     use_learned_names: bool = False
     num_select_prompt: int = 20
+    # in-layer encoder and decoder adapters (CAT, `GroundingDINO_SwinT_OGC_cat.py`)
+    use_adapter: bool = False
+    use_self_kd: bool = False
+    encoder_gate_base_scale: float = 0.1
+    decoder_gate_base_scale: float = 0.1
     # the language-side branch (the CET adapter of the dt model; the ZiRa
     # language branch in the ZiRa family, `groundingdino_dt.py:182-206`)
     use_cet: bool = True
+    cet_middle_dim: int = 1024
+    cet_type: str = "Adapter"  # "Adapter", "Linear" or "Transformer"
+    # CAT conditional prompt: an MoE adapter over the pooled deepest level,
+    # added to the encoded text (`groundingdino_conditional_adapter_tuning.py:
+    # 137-146,366-378`)
+    use_prompt: bool = False
     # ZiRa (`GroundingDINO_SwinT_OGC_rep.py:62-96`): the vision branches and
     # the zero-interference losses
     use_zero_inter_loss: bool = True
@@ -120,6 +131,16 @@ class GroundingDINOConfig:
     # (RepZeroLoRA, `groundingdino_dual_zero_rep_branch.py:251-253`)
     zira_lan_adapter: str = "linear"
     zira_lora_down_dim: Optional[int] = None  # None: in_features // 4
+    # MoE (`moe.py:144`; the configs use 1 expert)
+    num_experts: int = 1
+    num_topk_experts: int = 1
+    # the other PET baselines' switches: which parameters train
+    # (`train/optim.py::trainable_patterns_for_cfg`); `use_cls_linear` also
+    # gives the heads a linear projection
+    use_bert_tuning: bool = False
+    use_cls_linear: bool = False
+    use_prompt_tuning: bool = False
+    use_project_tuning: bool = False  # train the input projections themselves
     pixel_mean: Tuple[float, float, float] = (123.675, 116.28, 103.53)
     pixel_std: Tuple[float, float, float] = (58.395, 57.12, 57.375)
     # compute dtype of the matmul-heavy paths; parameters stay float32
@@ -149,11 +170,19 @@ class GroundingDINOConfig:
         return dataclasses.replace(self, **kw)
 
 
+# the switches of every preset built on the dt scaffold that has neither a
+# ZiRa branch nor a zero-interference loss
+_NO_ZIRA = dict(use_zero_inter_loss=False, use_project_adapter=False,
+                use_zero_inter_loss_for_conv=False)
+
 MODEL_PRESETS: Dict[str, GroundingDINOConfig] = {
     # vanilla inference model (`GroundingDINO_SwinT_OGC.py`): no branch at all
-    "groundingdino": GroundingDINOConfig(
-        modelname="groundingdino", use_cet=False, use_project_adapter=False,
-        use_zero_inter_loss=False, use_zero_inter_loss_for_conv=False),
+    "groundingdino": GroundingDINOConfig(modelname="groundingdino", use_cet=False, **_NO_ZIRA),
+    # detectron2-trainable scaffold with the CET language adapter
+    # (`GroundingDINO_SwinT_OGC_dt.py`)
+    "dtgroundingdino": GroundingDINOConfig(
+        modelname="dtgroundingdino", use_add_names=True, use_learned_names=True,
+        loss_adapter_weight=0.005, **_NO_ZIRA),
     # ZiRa headline model (`GroundingDINO_SwinT_OGC_rep.py`)
     "dualzerorepbranchgroundingdino": GroundingDINOConfig(),
     # multilayer-branch variant (`groundingdino_dual_zero_rep_multilayer_branch.py:971`)
@@ -165,19 +194,28 @@ MODEL_PRESETS: Dict[str, GroundingDINOConfig] = {
         modelname="repgroundingdino", use_cet=False, use_zero_inter_loss=False),
     "repconvbngroundingdino": GroundingDINOConfig(
         modelname="repconvbngroundingdino", use_cet=False, use_zero_inter_loss=False),
+    # the PET baselines (`GroundingDINO_SwinT_OGC_dt_{finetuning,linearprobing,
+    # prompttuning,berttuning,projecttuning}.py`)
+    "finetune": GroundingDINOConfig(modelname="dtgroundingdino", freeze_all=False,
+                                    use_cet=False, **_NO_ZIRA),
+    "linearprobe": GroundingDINOConfig(modelname="dtgroundingdino", use_cls_linear=True,
+                                       use_cet=False, **_NO_ZIRA),
+    "prompttune": GroundingDINOConfig(modelname="dtgroundingdino", use_prompt_tuning=True,
+                                      use_cet=False, **_NO_ZIRA),
+    "berttune": GroundingDINOConfig(modelname="dtgroundingdino", use_bert_tuning=True,
+                                    use_cet=False, **_NO_ZIRA),
+    "projecttune": GroundingDINOConfig(modelname="dtgroundingdino", use_project_tuning=True,
+                                       use_cet=False, **_NO_ZIRA),
+    # conditional adapter tuning, CAT (`GroundingDINO_SwinT_OGC_cat.py`)
+    "catgroundingdino": GroundingDINOConfig(modelname="catgroundingdino", use_adapter=True,
+                                            use_prompt=True, use_cet=False, **_NO_ZIRA),
 }
-
-# presets of the JAX package that the port does not build yet: the PET
-# baselines and CAT, which need its CET, in-layer and MoE adapters
-UNPORTED_PRESETS = ("dtgroundingdino", "finetune", "linearprobe", "prompttune", "berttune",
-                    "projecttune", "catgroundingdino")
 
 
 def get_model_config(name: str, **overrides) -> GroundingDINOConfig:
     """Look up a preset by name and apply overrides."""
     if name not in MODEL_PRESETS:
-        raise KeyError(f"unknown preset {name!r}: the port has {sorted(MODEL_PRESETS)}; "
-                       f"not ported yet: {list(UNPORTED_PRESETS)}")
+        raise KeyError(f"unknown preset {name!r}: the presets are {sorted(MODEL_PRESETS)}")
     cfg = MODEL_PRESETS[name]
     return cfg.replace(**overrides) if overrides else cfg
 

@@ -1,5 +1,6 @@
-"""GroundingDINO and its ZiRa family, the port of the JAX package's
-`models/groundingdino.py` for the presets of `config.MODEL_PRESETS`:
+"""GroundingDINO, its ZiRa family and the PET baselines, the port of the
+JAX package's `models/groundingdino.py` for every preset of
+`config.MODEL_PRESETS`:
   * `groundingdino`, the vanilla open-set detector (no branch at all);
   * `dualzerorepbranchgroundingdino`, ZiRa: a language branch on the BERT
     output (`rep_linear_adapter`, a RepZeroLinear or with
@@ -9,7 +10,17 @@
     (scaling 1.0, L1 ZIL) and RepZeroConvGN branches added after the whole
     projection;
   * `repgroundingdino` / `repconvbngroundingdino`: vision branches only,
-    RepZeroConv before the norm / ZeroConvBN after the projection.
+    RepZeroConv before the norm / ZeroConvBN after the projection;
+  * `dtgroundingdino` and the PET baselines on it (`finetune`,
+    `linearprobe`, `prompttune`, `berttune`, `projecttune`): with `use_cet`
+    the CET language adapter `cet_adapter` (any model without a ZiRa
+    language branch builds it), with `use_cls_linear` a `cls_linear` in
+    the class heads and a separate two-stage head; the other switches pick
+    the trainable parameters only (`train/optim.py`);
+  * `catgroundingdino`: an in-layer `adapter` in every encoder and decoder
+    layer (`use_adapter`) and, with `use_prompt`, the conditional prompt
+    `prompt_adapter` (an MoE adapter over the pooled deepest level, added
+    to the encoded text).
 
 Forward I/O as in the JAX package: NHWC pixels (normalized f32, or uint8
 normalized on the device) + validity mask [B, H, W] True = valid, and a text
@@ -25,7 +36,8 @@ Module and parameter names follow the reference checkpoint, so its
 language branch, `backbone.0.*` (Swin), `input_proj.{l}.{0,1}`,
 `input_proj_conv_adapter.{l}`, `transformer.*`, `bbox_embed.{i}` (one MLP
 shared by every decoder layer, also aliased as `transformer.decoder.
-bbox_embed`) and the parameter-free `class_embed`.
+bbox_embed`) and `class_embed.{i}` (one head, parameter-free unless
+`use_cls_linear`, aliased as `transformer.decoder.class_embed`).
 """
 
 from __future__ import annotations
@@ -36,6 +48,7 @@ import torch
 from torch import nn
 
 from ziragroundingdino_torch.config import GroundingDINOConfig
+from ziragroundingdino_torch.models.adapters import MoeAdapter, cet_adapter
 from ziragroundingdino_torch.models.bert import BertEncoder
 from ziragroundingdino_torch.models.heads import ContrastiveEmbed
 from ziragroundingdino_torch.models.layers import MLP, Linear
@@ -59,9 +72,8 @@ ZIRA_MODELNAMES = (
     "repgroundingdino",
     "repconvbngroundingdino",
 )
-# the model names the port builds; the JAX package's `dtgroundingdino` and
-# `catgroundingdino` need its CET, in-layer and MoE adapters, not ported yet
-PORTED_MODELNAMES = ("groundingdino",) + ZIRA_MODELNAMES
+# every model name of the JAX package (`config.py:236-280` there)
+MODELNAMES = ("groundingdino", "dtgroundingdino", "catgroundingdino") + ZIRA_MODELNAMES
 # variants whose vision branch adds after the whole input projection
 # (`groundingdino_repconvbn.py:613-614`, `multilayer_branch.py:575-576`);
 # the others add before its GroupNorm (`dual_zero_rep_branch.py:487-529`)
@@ -69,10 +81,11 @@ POST_NORM_ADAPTER = ("repconvbngroundingdino", "dualzerorepmultilayerbranchgroun
 
 
 def _language_adapter(cfg: GroundingDINOConfig, cd) -> Tuple[Optional[str], Optional[nn.Module]]:
-    """(name, module) of the ZiRa language branch, (None, None) where the
-    model has none (`groundingdino.py:55-77` of the JAX package). Raises
-    where the JAX package would build the CET adapter instead: `use_cet` on
-    a model without a ZiRa language branch."""
+    """(name, module) of the language branch, (None, None) without
+    `use_cet`: the ZiRa branch of the dual and multilayer variants
+    (`groundingdino.py:55-77` of the JAX package), the CET adapter
+    `cet_adapter` on any other model (`:143-164, :218-238`; for the rep
+    variants `groundingdino_repconvbn.py:253-270`)."""
     if not cfg.use_cet:
         return None, None
     bert_dim, e = cfg.bert.hidden_size, cfg.hidden_dim
@@ -89,9 +102,7 @@ def _language_adapter(cfg: GroundingDINOConfig, cd) -> Tuple[Optional[str], Opti
         return "rep_language_adapter", RepZeroLinear(
             bert_dim, e, scale_init=1.0, zero_value=cfg.zira_zero_init, compute_dtype=cd,
             zil="l1")
-    raise NotImplementedError(
-        f"use_cet on {cfg.modelname!r} builds the CET language adapter "
-        "(`models/adapters.py` of the JAX package), which the port does not have yet")
+    return "cet_adapter", cet_adapter(cfg, cd)
 
 
 def _vision_adapter(cfg: GroundingDINOConfig, cin: int, ks: int, stride: int, cd) -> nn.Module:
@@ -132,21 +143,20 @@ class InputProj(nn.Sequential):
 def encode_text(bert: BertEncoder, feat_map: Linear, lang_adapter: Optional[nn.Module],
                 text: Dict[str, torch.Tensor], train: bool = False,
                 generator: Optional[torch.Generator] = None
-                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The text path, BERT -> feat_map + the ZiRa language branch where the
-    model has one: (encoded_text [B, T, E], the branch's ZIL in train mode,
-    else None). The ZIL is a mean over valid tokens (`zira.py:35-51` of the
-    JAX package)."""
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The text path, BERT -> feat_map + the language branch where the
+    model has one: (encoded_text [B, T, E], the branch's f32 loss, 0
+    without a branch). A ZiRa branch runs its own branch and gives its ZIL
+    (a mean over valid tokens, `zira.py:35-51` of the JAX package) in train
+    mode only; the CET adapter runs alike in both modes and gives its
+    (self-KD) loss."""
     bert_out = bert(text["input_ids"], text["text_self_attention_masks"],
                     position_ids=text["position_ids"], generator=generator)
     encoded = feat_map(bert_out)
     if lang_adapter is None:
-        return encoded, None
-    if train:
-        rep_out, loss = lang_adapter.forward_train(bert_out, mask=text["text_token_mask"])
-    else:
-        rep_out, loss = lang_adapter(bert_out), None
-    return encoded + rep_out, loss
+        return encoded, torch.zeros((), dtype=torch.float32, device=encoded.device)
+    out, loss = lang_adapter.text_branch(bert_out, train, text["text_token_mask"])
+    return encoded + out, loss
 
 
 class TextEncoderOnly(nn.Module):
@@ -173,19 +183,14 @@ class TextEncoderOnly(nn.Module):
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(encoded_text [B, T, E], the language branch's ZIL: 0 unless train
         and the model has one)."""
-        encoded, loss = encode_text(self.bert, self.feat_map, self.lang_adapter, text, train)
-        if loss is None:
-            loss = torch.zeros((), dtype=torch.float32, device=encoded.device)
-        return encoded, loss
+        return encode_text(self.bert, self.feat_map, self.lang_adapter, text, train)
 
 
 class GroundingDINO(nn.Module):
     def __init__(self, cfg: GroundingDINOConfig):
         super().__init__()
-        if cfg.modelname not in PORTED_MODELNAMES:
-            raise NotImplementedError(
-                f"the port builds {list(PORTED_MODELNAMES)}, not {cfg.modelname!r} "
-                "(dtgroundingdino and catgroundingdino are not ported yet)")
+        if cfg.modelname not in MODELNAMES:
+            raise ValueError(f"unknown modelname {cfg.modelname!r}: not one of {MODELNAMES}")
         self.cfg = cfg
         cd = cfg.torch_dtype
         e = cfg.hidden_dim
@@ -215,16 +220,22 @@ class GroundingDINO(nn.Module):
         self.input_proj_conv_adapter = nn.ModuleList(adapters) if adapters else None
         self.post_norm_adapter = cfg.modelname in POST_NORM_ADAPTER
 
+        # CAT's conditional prompt (`groundingdino_conditional_adapter_tuning.py:137-146`)
+        self.prompt_adapter = (
+            MoeAdapter(e, 64, 1.0, cfg.num_experts, cfg.num_topk_experts, use_self_kd=False,
+                       output_dim=e, compute_dtype=cd) if cfg.use_prompt else None)
+
         self.transformer = Transformer(cfg, cd)
         box_head = MLP(e, e, 4, 3, zero_init_last=True, compute_dtype=torch.float32)
         self.bbox_embed = nn.ModuleList([box_head] * cfg.dec_layers)
         self.transformer.decoder.bbox_embed = self.bbox_embed
-        self.class_embed = nn.ModuleList(
-            [ContrastiveEmbed(cfg.max_text_len)] * cfg.dec_layers)
+        class_head = ContrastiveEmbed(cfg.max_text_len, cfg.use_cls_linear, e, cd)
+        self.class_embed = nn.ModuleList([class_head] * cfg.dec_layers)
+        self.transformer.decoder.class_embed = self.class_embed
 
     @property
     def lang_adapter(self) -> Optional[nn.Module]:
-        """The ZiRa language branch, None where the model has none."""
+        """The language branch (ZiRa or CET), None where the model has none."""
         return None if self.lang_adapter_name is None else getattr(self, self.lang_adapter_name)
 
     def forward(
@@ -242,8 +253,11 @@ class GroundingDINO(nn.Module):
         branches run beside the frozen ones, and the output adds
         `aux_outputs` (the first dec_layers - 1 decoder layers, with
         cfg.aux_loss), `interm_outputs` (the two-stage heads) and
-        `adapter_losses` (the ZILs). `generator` (on the input's device)
-        draws dropout and stochastic depth; None means none. Where
+        `adapter_losses`: the language branch's (`loss_linear_adapter`) and
+        the vision branches' (`loss_conv_adapter`) ZILs, and the in-layer
+        adapters' and the conditional prompt's losses (`loss_adapter`).
+        `generator` (on the input's device) draws dropout, stochastic depth
+        and CAT's noisy MoE gating; None means none. Where
         `prompt_replace_mask` is True, the encoded text takes
         `prompt_replace_values` (`train.incremental.build_prompt_injection`)."""
         cfg = self.cfg
@@ -300,8 +314,22 @@ class GroundingDINO(nn.Module):
                 temperature_h=cfg.pe_temperature_h, temperature_w=cfg.pe_temperature_w,
             ).to(cd))
 
+        # CAT's conditional prompt (`groundingdino_conditional_adapter_tuning.py:
+        # 366-378`): the deepest level pooled, padding included, through the
+        # MoE adapter (noisy gating where dropout is on), added to the text
+        prompt_loss = zero
+        if self.prompt_adapter is not None:
+            ctx = srcs[-1].float().mean(dim=(1, 2))[:, None, :]
+            prompt_out, prompt_loss = self.prompt_adapter(ctx.to(cd), generator)
+            prompt_loss = prompt_loss + prompt_out.float().abs().mean()
+            text_dict = dict(text_dict, encoded_text=text_dict["encoded_text"] + prompt_out)
+
         class_embed = self.class_embed[0]
-        tr = self.transformer(srcs, masks_lvl, poss, text_dict, class_embed, generator, train)
+        enc_class_embed = self.transformer.enc_out_class_embed
+        if enc_class_embed is None:
+            enc_class_embed = class_embed
+        tr = self.transformer(srcs, masks_lvl, poss, text_dict, enc_class_embed, generator,
+                              train)
         text_dict = dict(text_dict, encoded_text=tr["memory_text"])
 
         # anchor-update box outputs (`groundingdino.py:369-376`): layer i
@@ -322,9 +350,10 @@ class GroundingDINO(nn.Module):
         if cfg.aux_loss:
             out["aux_outputs"] = [{"pred_logits": c, "pred_boxes": b}
                                   for c, b in zip(logits[:-1], boxes[:-1])]
-            out["interm_outputs"] = {"pred_logits": class_embed(tr["hs_enc"], text_dict),
+            out["interm_outputs"] = {"pred_logits": enc_class_embed(tr["hs_enc"], text_dict),
                                      "pred_boxes": tr["ref_enc"]}
         out["adapter_losses"] = {
-            "loss_linear_adapter": zero if loss_linear is None else loss_linear,
-            "loss_conv_adapter": loss_conv}
+            "loss_linear_adapter": loss_linear,
+            "loss_conv_adapter": loss_conv,
+            "loss_adapter": tr["adapter_loss"] + prompt_loss}
         return out

@@ -65,8 +65,10 @@ class Linear(nn.Linear):
     """`nn.Linear` that computes in `compute_dtype` (None: the input's dtype).
 
     init: "torch" (nn.Linear's default, U(+-1/sqrt(in)) on weight and bias),
-    "xavier" (xavier-uniform weight, zero bias), "zeros", or a float that
-    fills weight and bias (the ZiRa branches' 1e-8).
+    "kaiming" (the same weight, kaiming-uniform with a = sqrt(5), and a zero
+    bias: the adapters' down projections), "xavier" (xavier-uniform weight,
+    zero bias), "zeros", or a float that fills weight and bias (the ZiRa
+    branches' 1e-8).
     """
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
@@ -81,11 +83,13 @@ class Linear(nn.Linear):
 
     def init_weights(self, gen: torch.Generator) -> None:
         with torch.no_grad():
-            if self.init == "torch":
+            if self.init in ("torch", "kaiming"):
                 bound = 1.0 / math.sqrt(self.in_features)
                 _uniform_(self.weight, bound, gen)
-                if self.bias is not None:
+                if self.bias is not None and self.init == "torch":
                     _uniform_(self.bias, bound, gen)
+                elif self.bias is not None:
+                    self.bias.zero_()
             elif self.init == "xavier":
                 xavier_uniform_(self.weight, self.in_features, self.out_features, gen)
                 if self.bias is not None:

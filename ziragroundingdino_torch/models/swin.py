@@ -59,7 +59,10 @@ def _shift_attn_mask(hp: int, wp: int, window: int, shift: int) -> np.ndarray:
 
 
 class _DeviceTables:
-    """Per-device tensor copies of static numpy tables."""
+    """Per-device tensor copies of static numpy tables. A table is made
+    outside inference mode even when the first call runs in it (`predict`),
+    so that a later train step may save it for the backward (`finetune`
+    trains Swin)."""
 
     def __init__(self):
         self._cache: Dict[Tuple, torch.Tensor] = {}
@@ -68,7 +71,8 @@ class _DeviceTables:
         k = key + (str(device),)
         t = self._cache.get(k)
         if t is None:
-            t = torch.as_tensor(make(), device=device)
+            with torch.inference_mode(False):
+                t = torch.as_tensor(make(), device=device)
             self._cache[k] = t
         return t
 

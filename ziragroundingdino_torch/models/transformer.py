@@ -3,7 +3,10 @@ the JAX package's `models/transformer.py` (reference
 `transformer_for_adapter.py`): `MSDeformAttn`, the deformable encoder and
 text-enhancer layers, `FeatureEnhancer`, two-stage language-guided top-k
 query selection, the decoder layer, `CrossModalityDecoder` and
-`Transformer`.
+`Transformer`. Under `use_adapter` (CAT) each deformable layer holds an
+in-layer `adapters.Adapter`; each layer returns its adapter's f32 loss (0
+without an adapter), and the stacks and `Transformer` sum them as the JAX
+package does.
 
 Batch-first; masks True = valid; softmaxes in f32; the decoder FFN in f32 as
 in the reference's autocast-disabled region (`:1004`). MSDA goes straight to
@@ -20,7 +23,9 @@ import torch
 from torch import nn
 
 from ziragroundingdino_torch.config import GroundingDINOConfig
+from ziragroundingdino_torch.models.adapters import Adapter, zero_loss
 from ziragroundingdino_torch.models.fusion import BiAttentionBlock
+from ziragroundingdino_torch.models.heads import ContrastiveEmbed
 from ziragroundingdino_torch.models.layers import (
     MLP,
     Embedding,
@@ -109,7 +114,9 @@ class MSDeformAttn(nn.Module):
 
 
 class DeformableEncoderLayer(nn.Module):
-    """`transformer_for_adapter.py:809-907`."""
+    """`transformer_for_adapter.py:809-907`; the CAT adapter reads the
+    normed attention output and adds beside the FFN, before `norm2`, in the
+    compute dtype (`:850`)."""
 
     def __init__(self, cfg: GroundingDINOConfig, compute_dtype: Optional[torch.dtype]):
         super().__init__()
@@ -121,12 +128,20 @@ class DeformableEncoderLayer(nn.Module):
         self.linear2 = Linear(cfg.dim_feedforward, e, compute_dtype=compute_dtype)
         self.norm2 = LayerNorm(e)
         self.act = activation_fn(cfg.transformer_activation)
+        self.adapter = (Adapter(e, 64, cfg.encoder_gate_base_scale, cfg.use_self_kd,
+                                compute_dtype=compute_dtype) if cfg.use_adapter else None)
 
     def forward(self, src, pos, reference_points, spatial_shapes, key_padding_mask):
+        """(src, the adapter's f32 loss, 0 without one)."""
         src2 = self.self_attn(src + pos, src, reference_points, spatial_shapes, key_padding_mask)
         src = self.norm1(src + src2).to(src2.dtype)
+        adapter_out, loss = (self.adapter(src) if self.adapter is not None
+                             else (None, zero_loss(src)))
         y = self.linear2(self.act(self.linear1(src)))
-        return self.norm2(src + y).to(y.dtype)
+        src = src + y
+        if adapter_out is not None:
+            src = src + adapter_out
+        return self.norm2(src).to(y.dtype), loss
 
 
 class TextEnhancerLayer(nn.Module):
@@ -226,7 +241,8 @@ def select_topk(scores: torch.Tensor, k: int) -> torch.Tensor:
 
 class FeatureEnhancer(nn.Module):
     """The encoder stack: per layer fusion -> text layer -> deformable layer
-    (`transformer_for_adapter.py:563-661`)."""
+    (`transformer_for_adapter.py:563-661`). Returns (image memory, text
+    memory, the layers' summed f32 adapter loss)."""
 
     def __init__(self, cfg: GroundingDINOConfig, compute_dtype: Optional[torch.dtype]):
         super().__init__()
@@ -246,16 +262,20 @@ class FeatureEnhancer(nn.Module):
         pos_text = get_sine_pos_embed(position_ids[..., None].float(),
                                       num_pos_feats=self.cfg.hidden_dim,
                                       exchange_xy=False).to(src.dtype)
+        adapter_loss = zero_loss(src)
         for fusion, text_layer, layer in zip(self.fusion_layers, self.text_layers, self.layers):
             src, text = fusion(src, text, key_padding_mask, text_token_mask, generator)
             text = text_layer(text, text_self_attention_masks, pos_text, generator)
-            src = layer(src, pos, reference_points, spatial_shapes, key_padding_mask)
-        return src, text
+            src, loss = layer(src, pos, reference_points, spatial_shapes, key_padding_mask)
+            adapter_loss = adapter_loss + loss
+        return src, text, adapter_loss
 
 
 class DeformableDecoderLayer(nn.Module):
     """`transformer_for_adapter.py:910-1073`: self-attn -> text cross-attn ->
-    deformable cross-attn -> f32 FFN."""
+    deformable cross-attn -> f32 FFN. The CAT adapter reads the normed
+    cross-attention output and adds after the FFN, before `norm3`, in f32
+    (`:969`)."""
 
     def __init__(self, cfg: GroundingDINOConfig, compute_dtype: Optional[torch.dtype]):
         super().__init__()
@@ -272,9 +292,12 @@ class DeformableDecoderLayer(nn.Module):
         self.linear2 = Linear(cfg.dim_feedforward, e, compute_dtype=torch.float32)
         self.norm3 = LayerNorm(e)
         self.act = activation_fn(cfg.transformer_activation)
+        self.adapter = (Adapter(e, 64, cfg.decoder_gate_base_scale, cfg.use_self_kd,
+                                compute_dtype=torch.float32) if cfg.use_adapter else None)
 
     def forward(self, tgt, query_pos, reference_points_input, memory, memory_mask,
                 spatial_shapes, text, text_token_mask, self_attn_mask=None, generator=None):
+        """(tgt, the adapter's f32 loss, 0 without one)."""
         q = tgt + query_pos
         attn = self.self_attn(q, q, tgt, attn_mask=self_attn_mask, generator=generator)
         tgt = self.norm2(tgt + attn).to(attn.dtype)
@@ -284,16 +307,20 @@ class DeformableDecoderLayer(nn.Module):
         attn = self.cross_attn(tgt + query_pos, memory, reference_points_input, spatial_shapes,
                                memory_mask)
         tgt = self.norm1(tgt + attn).to(attn.dtype)
+        adapter_out, loss = (self.adapter(tgt) if self.adapter is not None
+                             else (None, zero_loss(tgt)))
         y = self.linear2(self.act(self.linear1(tgt)))
         tgt = tgt.float() + y
-        return self.norm3(tgt).to(self.compute_dtype or y.dtype)
+        if adapter_out is not None:
+            tgt = tgt + adapter_out
+        return self.norm3(tgt).to(self.compute_dtype or y.dtype), loss
 
 
 class CrossModalityDecoder(nn.Module):
     """Decoder stack with conditional queries + iterative box refinement
-    (`transformer_for_adapter.py:665-806`). The shared box head is owned by
-    the parent model and aliased here as `bbox_embed`, as in the reference
-    (`groundingdino.py:188-191`)."""
+    (`transformer_for_adapter.py:665-806`). The shared box and class heads
+    are owned by the parent model and aliased here as `bbox_embed` and
+    `class_embed`, as in the reference (`groundingdino.py:188-200`)."""
 
     def __init__(self, cfg: GroundingDINOConfig, compute_dtype: Optional[torch.dtype]):
         super().__init__()
@@ -304,7 +331,9 @@ class CrossModalityDecoder(nn.Module):
                                     for _ in range(cfg.dec_layers))
         self.norm = LayerNorm(e)
         self.ref_point_head = MLP(2 * e, e, e, 2, compute_dtype=compute_dtype)
-        self.bbox_embed: Optional[nn.ModuleList] = None  # set by the parent model
+        # the parent model's shared heads (`bbox_embed` is read here)
+        self.bbox_embed: Optional[nn.ModuleList] = None
+        self.class_embed: Optional[nn.ModuleList] = None
 
     def forward(self, tgt, refpoints_unsigmoid, memory, memory_mask, spatial_shapes,
                 valid_ratios, text, text_token_mask, generator=None):
@@ -313,25 +342,30 @@ class CrossModalityDecoder(nn.Module):
         reference_points = torch.sigmoid(refpoints_unsigmoid.float())
         intermediate: List[torch.Tensor] = []
         ref_points = [reference_points]
+        adapter_loss = zero_loss(output)
         for i, layer in enumerate(self.layers):
             ref_input = (reference_points[:, :, None]
                          * torch.cat([valid_ratios, valid_ratios], -1)[:, None])  # [B, Q, L, 4]
             query_sine = gen_sineembed_for_position(ref_input[:, :, 0, :],
                                                     num_feats=cfg.hidden_dim // 2)
             query_pos = self.ref_point_head(query_sine.to(self.compute_dtype or output.dtype))
-            output = layer(output, query_pos, ref_input, memory, memory_mask, spatial_shapes,
-                           text, text_token_mask, generator=generator)
+            output, loss = layer(output, query_pos, ref_input, memory, memory_mask,
+                                 spatial_shapes, text, text_token_mask, generator=generator)
+            adapter_loss = adapter_loss + loss
             delta = self.bbox_embed[i](output.float()).float()
             new_ref = torch.sigmoid(delta + inverse_sigmoid(reference_points))
             reference_points = new_ref.detach()
             ref_points.append(new_ref)
             intermediate.append(self.norm(output))
-        return intermediate, ref_points
+        return intermediate, ref_points, adapter_loss
 
 
 class Transformer(nn.Module):
     """Encoder-decoder with two-stage language-guided query selection
-    (`transformer_for_adapter.py:228-421`)."""
+    (`transformer_for_adapter.py:228-421`). Under `use_cls_linear` the
+    two-stage class head is its own `enc_out_class_embed` with its own
+    `cls_linear` (`groundingdino.py:225-231`, two_stage_class_embed_share
+    False); else the model's shared head serves it."""
 
     def __init__(self, cfg: GroundingDINOConfig, compute_dtype: Optional[torch.dtype]):
         super().__init__()
@@ -346,6 +380,9 @@ class Transformer(nn.Module):
         self.enc_output_norm = LayerNorm(e)
         self.enc_out_bbox_embed = MLP(e, e, 4, 3, zero_init_last=True,
                                       compute_dtype=torch.float32)
+        self.enc_out_class_embed = (
+            ContrastiveEmbed(cfg.max_text_len, True, e, compute_dtype) if cfg.use_cls_linear
+            else None)
 
     def init_weights(self, gen: torch.Generator) -> None:
         with torch.no_grad():
@@ -355,7 +392,9 @@ class Transformer(nn.Module):
                 train=False):
         """srcs/pos_embeds per level [B, h, w, E], masks per level [B, h, w]
         True = valid; enc_class_embed: (memory, text_dict) -> [B, S, T].
-        With `train`, the output adds the two-stage heads' inputs."""
+        With `train`, the output adds the two-stage heads' inputs.
+        `adapter_loss` is the in-layer adapters' summed f32 loss, 0 without
+        them."""
         cfg = self.cfg
         b = srcs[0].shape[0]
         cd = self.compute_dtype or srcs[0].dtype
@@ -372,7 +411,7 @@ class Transformer(nn.Module):
         spatial_shapes = tuple(shapes)
         valid_ratios = compute_valid_ratios(masks)
 
-        memory, memory_text = self.encoder(
+        memory, memory_text, enc_loss = self.encoder(
             src_flat, pos_flat, spatial_shapes, valid_ratios, mask_flat,
             text_dict["encoded_text"], text_dict["text_token_mask"],
             text_dict["text_self_attention_masks"], text_dict["position_ids"], generator)
@@ -392,7 +431,7 @@ class Transformer(nn.Module):
         # the two-stage losses back into the encoder
         refpoint_undetached = torch.gather(enc_coords, 1, topk_idx[..., None].expand(-1, -1, 4))
         tgt = self.tgt_embed.weight[None].expand(b, -1, -1).to(cd)
-        intermediate, ref_points = self.decoder(
+        intermediate, ref_points, dec_loss = self.decoder(
             tgt, refpoint_undetached.detach(), memory, mask_flat, spatial_shapes, valid_ratios,
             text_dict["encoded_text"], text_dict["text_token_mask"], generator)
         out = {
@@ -400,6 +439,7 @@ class Transformer(nn.Module):
             "references": ref_points,  # list of [B, Q, 4] sigmoided
             "memory_text": text_dict["encoded_text"],
             "topk_idx": topk_idx,  # [B, Q] memory positions chosen as queries
+            "adapter_loss": enc_loss + dec_loss,
         }
         if train:
             # two-stage heads' inputs: the selected encoder outputs [B, Q, E]

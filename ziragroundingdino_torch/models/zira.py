@@ -119,7 +119,21 @@ class Conv2d(nn.Conv2d):
                          self.stride[0], self.padding[0])
 
 
-class RepZeroLinear(nn.Module):
+class LanguageBranch(nn.Module):
+    """The call shape of every language branch on the BERT output, the
+    ZiRa ones here and the CET adapters (`adapters.CetBranch`):
+    `text_branch(x, train, mask)` -> (out, f32 loss). A ZiRa branch gives
+    its freeze branch and a zero loss in eval, `forward_train` in train
+    mode."""
+
+    def text_branch(self, x: torch.Tensor, train: bool, mask: Optional[torch.Tensor]
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        if train:
+            return self.forward_train(x, mask)
+        return self(x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+class RepZeroLinear(LanguageBranch):
     def __init__(self, in_features: int, features: int, scale_init: float = LAN_SCALE,
                  zero_value: float = ZERO_VALUE, compute_dtype: Optional[torch.dtype] = None,
                  zil: str = "smooth_l1"):
@@ -154,7 +168,7 @@ class RepZeroLinear(nn.Module):
         return out, loss(branch, mask) + loss(out, mask)
 
 
-class RepZeroLoRA(nn.Module):
+class RepZeroLoRA(LanguageBranch):
     """The low-rank language branch (`adapter.py:227-259`): ``scaling *
     up(down(x))``, `down` and `up` bias-free and init 1e-8, beside a
     bias-free zero-init freeze linear."""

@@ -169,7 +169,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
 
     def make_trainer(task_params, task):
         model.load_state_dict(task_params)
-        set_trainable(model, trainable_patterns_for_cfg(cfg))
+        set_trainable(model, trainable_patterns_for_cfg(cfg), freeze_all=cfg.freeze_all)
         # a fresh optimizer per task: no moments of merged branches carry over
         opt = Optimizer(
             model,

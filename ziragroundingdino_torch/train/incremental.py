@@ -233,13 +233,17 @@ def run_replay_phase(state: IncrementalState, model: GroundingDINO,
     replay only: after the task sequence, train the adapters against
     `replay_memory_loss` with AdamW at optax.adamw's defaults (weight decay
     1e-4, eps 1e-8; every adapter decays, gradient or not), then merge as
-    after a task."""
+    after a task. The replay trains the "adapter" parameters whatever the
+    preset, as the JAX package's (`freeze_all=True`); a model with none
+    (`finetune`, `prompttune`, ...) computes the losses and changes
+    nothing."""
     if not state.learned_classes:
         return state
     model.load_state_dict(state.params)
-    set_trainable(model, ZIRA_TRAINABLE_PATTERNS)
+    set_trainable(model, ZIRA_TRAINABLE_PATTERNS, freeze_all=True)
     params = [p for p in model.parameters() if p.requires_grad]
-    opt = torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+    opt = (torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+           if params else None)
     learned = list(state.learned_classes)
     cfg = model.cfg
     for it in range(iters):
@@ -248,11 +252,12 @@ def run_replay_phase(state: IncrementalState, model: GroundingDINO,
         total = sum(losses.values())
         if total.requires_grad:  # a model without a language branch has no gradient here
             total.backward()
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        opt.step()
-        opt.zero_grad(set_to_none=True)
+        if opt is not None:
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            opt.step()
+            opt.zero_grad(set_to_none=True)
         if (it + 1) % 20 == 0 or it == 0:
             logger.info("replay iter %d loss %.6f", it + 1, float(total.detach()))
     rep_merge(model, scale_reset=scale_reset_for_cfg(cfg))

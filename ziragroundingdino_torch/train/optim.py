@@ -6,7 +6,8 @@ schedules, the global-norm clip and EMA: the port of the JAX package's
 The frozen base gets `requires_grad=False` (the reference's before_train
 hook, `groundingdino_dual_zero_rep_branch.py:722-737`), so neither the
 backward nor the optimizer touches it, and the clip sees trainable
-gradients only (`train_net.py:144-150`). `torch.optim.AdamW` is the same
+gradients only (`train_net.py:144-150`). With `freeze_all=False` (the
+`finetune` preset) every parameter trains. `torch.optim.AdamW` is the same
 update as the JAX package's AdamW (b1, b2, eps 1e-8, decoupled weight decay
 scaled by the lr); the schedule is a `LambdaLR` factor, read at the step
 count before the step as the JAX schedule is.
@@ -31,31 +32,37 @@ def trainable_patterns_for_cfg(cfg) -> Tuple[str, ...]:
     """The reference's before_train unfreeze matrix (`groundingdino_dt.py:
     775-783`): "adapter" always, plus the module groups of the PET
     baselines' switches (`use_bert_tuning`, `use_cls_linear`,
-    `use_project_tuning`), which a config without them leaves off. For the
+    `use_project_tuning`). For the
     ZiRa family that is every parameter of the branches, the freeze
     branches (soft-frozen by an lr factor) and the multilayer variant's
     `freeze_gn` included; ZeroConvBN's running statistics are buffers, not
-    parameters. The vanilla `groundingdino` has no such parameter: it
-    serves only, and `Optimizer` refuses it."""
+    parameters. CAT's are its in-layer and prompt adapters, the dt model's
+    its CET adapter. `use_prompt_tuning` adds nothing: the JAX package
+    keeps the prompts outside the parameters and never optimises them, so
+    `prompttune` (like the vanilla `groundingdino`) has no trainable
+    parameter and its steps change no weight."""
     pats = ["adapter"]
-    if getattr(cfg, "use_bert_tuning", False):
+    if cfg.use_bert_tuning:
         pats += ["bert", "feat_map"]
-    if getattr(cfg, "use_cls_linear", False):
+    if cfg.use_cls_linear:
         pats += ["class_embed", "bbox_embed"]
-    if getattr(cfg, "use_project_tuning", False):
+    if cfg.use_project_tuning:
         pats += ["input_proj"]
     return tuple(pats)
 
 
-def trainable_mask(model: nn.Module, patterns: Sequence[str]) -> Dict[str, bool]:
+def trainable_mask(model: nn.Module, patterns: Sequence[str],
+                   freeze_all: bool = True) -> Dict[str, bool]:
     """{parameter name: trainable}: a substring match on the name, as the
-    reference's `if "adapter" in name` loops."""
-    return {n: any(p in n for p in patterns) for n, _ in model.named_parameters()}
+    reference's `if "adapter" in name` loops; every parameter with
+    `freeze_all=False` (`GroundingDINO_SwinT_OGC_dt_finetuning.py`)."""
+    return {n: not freeze_all or any(p in n for p in patterns)
+            for n, _ in model.named_parameters()}
 
 
-def set_trainable(model: nn.Module, patterns: Sequence[str]) -> None:
+def set_trainable(model: nn.Module, patterns: Sequence[str], freeze_all: bool = True) -> None:
     """`requires_grad` per `trainable_mask`."""
-    mask = trainable_mask(model, patterns)
+    mask = trainable_mask(model, patterns, freeze_all)
     for n, p in model.named_parameters():
         p.requires_grad_(mask[n])
 
@@ -135,23 +142,27 @@ class Optimizer:
     """What one train step applies to the trainable parameters of `model`
     (those with `requires_grad`): the global-norm clip, AdamW with one
     parameter group per lr factor, the schedule, and an EMA of the
-    trainable parameters when `ema_decay` is given."""
+    trainable parameters when `ema_decay` is given. A model with no
+    trainable parameter takes steps that change nothing, as the JAX
+    package's optimizer does under an all-frozen mask."""
 
     def __init__(self, model: nn.Module, cfg: OptimizerConfig = OptimizerConfig(),
                  schedule: ScheduleConfig = ScheduleConfig(), ema_decay: Optional[float] = None):
         if cfg.name != "adamw":
             raise ValueError(f"the port's optimizer is adamw, not {cfg.name!r}")
         self.params = {n: p for n, p in model.named_parameters() if p.requires_grad}
-        if not self.params:
-            raise ValueError("the model has no trainable parameter")
+        self.device = next(model.parameters()).device
         factor = lr_factor_fn(cfg.lr_factors)
         groups: Dict[float, list] = {}
         for n, p in self.params.items():
             groups.setdefault(factor(n), []).append(p)
-        self.adamw = torch.optim.AdamW(
-            [{"params": ps, "lr": cfg.lr * f} for f, ps in sorted(groups.items())],
-            lr=cfg.lr, betas=cfg.betas, eps=1e-8, weight_decay=cfg.weight_decay)
-        self.schedule = torch.optim.lr_scheduler.LambdaLR(self.adamw, make_schedule(schedule))
+        self.adamw = self.schedule = None
+        if self.params:
+            self.adamw = torch.optim.AdamW(
+                [{"params": ps, "lr": cfg.lr * f} for f, ps in sorted(groups.items())],
+                lr=cfg.lr, betas=cfg.betas, eps=1e-8, weight_decay=cfg.weight_decay)
+            self.schedule = torch.optim.lr_scheduler.LambdaLR(self.adamw,
+                                                              make_schedule(schedule))
         self.grad_clip = cfg.grad_clip
         self.ema_decay = ema_decay
         self.ema = (None if ema_decay is None
@@ -160,11 +171,18 @@ class Optimizer:
     def step(self) -> torch.Tensor:
         """Apply the gradients that the backward left on the trainable
         parameters, then clear them. Returns their global norm before the
-        clip."""
-        grads = [p.grad for p in self.params.values() if p.grad is not None]
-        if not grads:
+        clip (0 without a trainable parameter)."""
+        if not self.params:
+            return torch.zeros((), device=self.device)
+        if all(p.grad is None for p in self.params.values()):
             raise RuntimeError("no trainable parameter has a gradient")
-        norm = clip_by_global_norm_(grads, self.grad_clip)
+        for p in self.params.values():
+            if p.grad is None:
+                # a trainable parameter the loss did not reach (CAT's `w_noise`
+                # without noisy gating) steps on a zero gradient, so that AdamW
+                # decays it and its moments as optax's does
+                p.grad = torch.zeros_like(p)
+        norm = clip_by_global_norm_([p.grad for p in self.params.values()], self.grad_clip)
         self.adamw.step()
         self.schedule.step()
         if self.ema is not None:
@@ -176,13 +194,16 @@ class Optimizer:
         """AdamW's moments and step counts, the schedule's step and the EMA:
         what a checkpoint needs to resume (`torch.load(weights_only=True)`
         reads it back)."""
+        if not self.params:
+            return {"adamw": None, "schedule": None, "ema": self.ema}
         return {"adamw": self.adamw.state_dict(), "schedule": self.schedule.state_dict(),
                 "ema": self.ema}
 
     def load_state_dict(self, state: Dict) -> None:
         """Restore `state_dict()` of an Optimizer built the same way."""
-        self.adamw.load_state_dict(state["adamw"])
-        self.schedule.load_state_dict(state["schedule"])
+        if self.adamw is not None:
+            self.adamw.load_state_dict(state["adamw"])
+            self.schedule.load_state_dict(state["schedule"])
         if (self.ema is None) != (state["ema"] is None):
             raise ValueError("the checkpoint's EMA does not match this optimizer's")
         if self.ema is not None:

@@ -4,9 +4,10 @@
 `train_step(model, optimizer, batch, generator)`: the forward in train mode,
 the set criterion on per-category logits, the ZiRa zero-interference losses,
 the backward over the trainable parameters (`train.optim.set_trainable`
-froze the rest, so the frozen Swin and BERT run no backward at all), then
-`optim.Optimizer.step` (clip, AdamW, schedule, EMA). `generator=None` is
-deterministic (no dropout), as `rngs=None` is in the JAX package.
+froze the rest, so a frozen Swin or BERT runs no backward at all; a model
+with nothing trainable, `prompttune`, none), then `optim.Optimizer.step`
+(clip, AdamW, schedule, EMA). `generator=None` is deterministic (no
+dropout, no noisy MoE gating), as `rngs=None` is in the JAX package.
 
 A batch is a dict of tensors on the model's device: `pixels` [B, H, W, 3],
 `mask` [B, H, W], the text batch (`input_ids`, `text_token_mask`,
@@ -67,6 +68,9 @@ def compute_losses(model: GroundingDINO, batch: Dict[str, torch.Tensor],
     if cfg.use_cet and cfg.use_zero_inter_loss:
         losses["loss_linear_adapter"] = al["loss_linear_adapter"] * cfg.loss_adapter_weight
         total = total + losses["loss_linear_adapter"]
+    if cfg.use_adapter:  # CAT's in-layer adapters and prompt (`step.py:86-88` there)
+        losses["loss_adapter"] = al["loss_adapter"] * cfg.loss_adapter_weight
+        total = total + losses["loss_adapter"]
     losses["total_loss"] = total
     return total, losses
 
@@ -77,7 +81,8 @@ def train_step(model: GroundingDINO, optimizer: Optimizer, batch: Dict[str, torc
     gradients' global norm before the clip) as detached tensors on the
     model's device."""
     total, losses = compute_losses(model, batch, generator)
-    total.backward()
+    if total.requires_grad:
+        total.backward()
     metrics = {k: v.detach() for k, v in losses.items()}
     metrics["grad_norm"] = optimizer.step()
     return metrics

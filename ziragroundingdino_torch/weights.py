@@ -16,10 +16,15 @@ becomes a pattern and the torch pattern a template. Layouts:
   * RepZeroConvGN freeze_gn_*       -> freeze_gn.weight / .bias
   * ZeroConvBN branch_* / bn_*      -> branch.conv.* / branch.bn.weight|bias,
     and its `batch_stats` bn_mean / bn_var -> branch.bn.running_mean / _var
+  * MoE fc1/fc2 kernels [E, in, out], biases [E, out]
+                                    -> experts.{e}.fc1|fc2.weight / .bias,
+    one per expert, and the reference's constant `mean` (0) / `std` (1)
+    buffers beside them
 The box head shared by every decoder layer is one JAX entry
-(`bbox_embed`); the state_dict repeats it under `bbox_embed.{i}` and
-`transformer.decoder.bbox_embed.{i}` for each decoder layer, as the
-reference's does.
+(`bbox_embed`), and so is the class head's `cls_linear` (linear probing);
+the state_dict repeats each under `bbox_embed.{i}` / `class_embed.{i}` and
+`transformer.decoder.bbox_embed.{i}` / `.class_embed.{i}` for each decoder
+layer, as the reference's does.
 """
 
 from __future__ import annotations
@@ -140,6 +145,29 @@ _rule(r"input_proj_conv_adapter\.(\d+)\.freeze_conv\.bias$",
 # (`_convbn_names`)
 _CONVBN = re.compile(r"(input_proj_conv_adapter\.\d+)\.(weight|bias)$")
 
+# ---- the CET language adapter (the dt model; `torch_convert.py:170-174` of
+# the JAX package): Adapter, LinearAdapter, or TransformerAdapter, whose
+# names follow the MHA / LN / Linear rules
+for _n in ("adapter_down", "adapter_up", "linear", "linear1", "linear2", "project_out"):
+    _lin_rules(rf"cet_adapter\.{_n}", f"cet_adapter/{_n}")
+_rule(r"cet_adapter\.gate\.weight$", "cet_adapter/gate/gate")
+_mha_rules(r"cet_adapter\.self_attn", "cet_adapter/self_attn")
+for _n in ("norm1", "norm2"):
+    _ln_rules(rf"cet_adapter\.{_n}", f"cet_adapter/{_n}")
+
+# ---- CAT: the conditional prompt's MoE gate (its experts: `_MOE_EXPERT`)
+# and the in-layer adapters (`transformer_for_adapter.py:850,969`)
+for _g in ("w_gate", "w_noise"):
+    _rule(rf"prompt_adapter\.adapter_moe\.{_g}$", f"prompt_adapter/adapter_moe/{_g}")
+for _side in ("encoder", "decoder"):
+    for _n in ("adapter_down", "adapter_up"):
+        _lin_rules(rf"transformer\.{_side}\.layers\.(\d+)\.adapter\.{_n}",
+                   rf"transformer/{_side}/layers_\1/adapter/{_n}")
+    _rule(rf"transformer\.{_side}\.layers\.(\d+)\.adapter\.gate\.weight$",
+          rf"transformer/{_side}/layers_\1/adapter/gate/gate")
+# the JAX MoE stacks its experts: one leaf, a torch tensor per expert
+_MOE_EXPERT = re.compile(r"(.*)/adapter_moe/(fc[12])_(kernel|bias)$")
+
 # ---- transformer top level
 _rule(r"transformer\.level_embed$", "transformer/level_embed")
 _rule(r"transformer\.tgt_embed\.weight$", "transformer/tgt_embed")
@@ -148,6 +176,7 @@ _ln_rules(r"transformer\.enc_output_norm", "transformer/enc_output_norm")
 for _j in range(3):
     _lin_rules(rf"transformer\.enc_out_bbox_embed\.layers\.{_j}",
                rf"enc_out_bbox_embed/layers_{_j}")
+_lin_rules(r"transformer\.enc_out_class_embed\.cls_linear", "enc_out_class_embed/cls_linear")
 
 # ---- encoder
 for _side, _attn in (("encoder", "self_attn"), ("decoder", "cross_attn")):
@@ -192,9 +221,10 @@ for _j in range(2):
     _lin_rules(rf"transformer\.decoder\.ref_point_head\.layers\.{_j}",
                rf"transformer/decoder/ref_point_head/layers_{_j}")
 
-# ---- heads: the canonical copy of the shared box head
+# ---- heads: the canonical copies of the shared box and class heads
 for _j in range(3):
     _lin_rules(rf"bbox_embed\.0\.layers\.{_j}", rf"bbox_embed/layers_{_j}")
+_lin_rules(r"class_embed\.0\.cls_linear", "class_embed/cls_linear")
 
 
 def _invert(pat: str, dst: str) -> Tuple["re.Pattern", str]:
@@ -259,6 +289,16 @@ def jax_params_to_state_dict(params: Mapping, batch_stats: Optional[Mapping] = N
     sd: Dict[str, torch.Tensor] = {}
     unmapped = []
     for path, leaf in leaves.items():
+        m = _MOE_EXPERT.match(path)
+        if m is not None:
+            prefix = m.group(1).replace("/", ".") + ".adapter_moe"
+            part = "weight" if m.group(3) == "kernel" else "bias"
+            for e, a in enumerate(leaf):
+                sd[f"{prefix}.experts.{e}.{m.group(2)}.{part}"] = torch.from_numpy(
+                    np.array(a.T if part == "weight" else a, dtype=np.float32))
+            sd[f"{prefix}.mean"] = torch.zeros(1)
+            sd[f"{prefix}.std"] = torch.ones(1)
+            continue
         for pattern, template, layout in _INVERSE:
             m = pattern.match(path)
             if m is not None:
@@ -272,9 +312,10 @@ def jax_params_to_state_dict(params: Mapping, batch_stats: Optional[Mapping] = N
         raise KeyError(f"no rule maps these JAX parameters: {unmapped[:10]}")
     sd = _convbn_names(sd)
     dec_layers = len({k.split(".")[3] for k in sd if k.startswith("transformer.decoder.layers.")})
-    for key in [k for k in sd if k.startswith("bbox_embed.0.")]:
-        rest = key[len("bbox_embed.0."):]
-        for i in range(dec_layers):
-            sd[f"bbox_embed.{i}.{rest}"] = sd[key]
-            sd[f"transformer.decoder.bbox_embed.{i}.{rest}"] = sd[key]
+    for head in ("bbox_embed", "class_embed"):
+        for key in [k for k in sd if k.startswith(f"{head}.0.")]:
+            rest = key[len(f"{head}.0."):]
+            for i in range(dec_layers):
+                sd[f"{head}.{i}.{rest}"] = sd[key]
+                sd[f"transformer.decoder.{head}.{i}.{rest}"] = sd[key]
     return sd
