@@ -4,8 +4,8 @@
 
 Phases, in order (any failure raises, and the script exits non-zero):
   1. card: name, nvidia-smi name and power limit; TF32 off for f32 checks;
-  2. build: every CUDA kernel of the port (`msda_forward`, `msda_backward`),
-     from its sources, one nvcc each, all at once; each kernel's registers,
+  2. build: every CUDA kernel of the port (`msda_forward`, `msda_backward`,
+     `lsap`), from its sources, one nvcc each, all at once; each kernel's registers,
      stack frame and spills as ptxas reports them, and a failure if any
      kernel has a stack frame or spills;
   3. kernels vs plain: `msda_forward` against `ms_deform_attn_plain` on the
@@ -30,6 +30,11 @@ Phases, in order (any failure raises, and the script exits non-zero):
      (count, scan, records, main, accumulate, memset, cast) under
      torch.profiler, and both paths' device time at Q between the decoder's
      and the encoder's (where the binned passes overtake the single pass);
+  3c. the exact assignment: `lsap` against `lsap_plain` at P = 7 * B
+     problems (the train step's 7 outputs of B images, B = 1, 2), Q = 900,
+     N = 1, 5, 50, 100 and Q, integer costs (ties), padded targets at BIG
+     and Q = 901: assignments exactly equal, totals equal to scipy's; the
+     call and device time, the host scipy path's time, the bytes bound;
   4. whole model, card vs CPU: a reduced-depth f32 model (tiny Swin/BERT,
      2 + 2 layers) with the same seeded weights on both;
   4b. the same model's train step, card vs CPU: every loss and every
@@ -47,8 +52,11 @@ Phases, in order (any failure raises, and the script exits non-zero):
      `msda_backward` launches per step (the 6 encoder calls by the binned
      passes, the 6 decoder calls by the single-pass kernel), frozen weights
      unchanged, every ZiRa branch given a gradient that is not all zero by
-     the backward and moved; ms per step and peak memory; with --profile, a step's
-     device busy time, idle share and top kernels;
+     the backward and moved, one `lsap` launch a step and no host matcher
+     call; ms per step and peak memory; then warm steps with
+     `matcher_impl="scipy"` and `"lsap"` in turns, and each one's
+     synchronising calls under `torch.cuda.set_sync_debug_mode("warn")`;
+     with --profile, a step's device busy time, idle share and top kernels;
   6. the ZiRa lifecycle at full width: the port's ODinW driver
      (`ziragroundingdino_torch.scripts.train_odinw.main`) on a seeded
      reference-format checkpoint with a prompt memory and two synthetic
@@ -101,7 +109,18 @@ Phases, in order (any failure raises, and the script exits non-zero):
        the first's classes, prompt capture and eval: only the CET adapter
        changes; a `phase 8: {...}` line with each preset's request ms,
        warm step ms, peak memory and launches;
-  9. result: a `kernels` JSON line, the nvidia-smi line, and last
+  9. the Predictor (`utils/predictor.py`) at full width: (a) phase 5's
+     image with a 4-category caption, batch 1, 8 requests; (b) three images
+     of three sizes with three captions, batch bucket 4; (c) 8 images; (d)
+     a caption of over 64 tokens (text bucket 128). Per key one CUDA graph,
+     captured once with 12 `msda_forward` launches inside, its replay
+     against the eager forward of the same inputs, request ms and img/s;
+     (a) against `predict`; the peak memory with every graph alive and the
+     shared pool; with --profile a replayed request's idle share; a
+     `phase 9: {...}` line, with phase 5b's matcher comparison;
+  Phases 5b, 6, 7c and 8 check one `lsap` launch and no host matcher call
+  (no copy of the costs to the host) per train step.
+  10. result: a `kernels` JSON line, the nvidia-smi line, and last
      `{"ok": true, "device": {...}}`.
 
 It needs a CUDA card and the repository's `ziragroundingdino_torch` package
@@ -145,14 +164,15 @@ BWD_TOL = {torch.float32: {"d_value": 1e-5, "d_loc": 1e-5, "d_attn": 1e-5},
 TRAIN_STEPS = 4
 
 
-def tpu_kernel_file(name: str = "msda_pallas.py") -> str:
-    """Path, in this checkout, of a file of the JAX package's `ops/`: the TPU
-    kernel that `msda_forward` replaces (`msda_pallas.py`, `pallas_call` at
-    line 72) or the MSDA with the hand-written backward that
-    `msda_backward` replaces (`msda.py`, the custom VJP at line 617)."""
+def tpu_kernel_file(name: str = "msda_pallas.py", folder: str = "ops") -> str:
+    """Path, in this checkout, of a file of the JAX package: the TPU kernel
+    that `msda_forward` replaces (`ops/msda_pallas.py`, `pallas_call` at
+    line 72), the MSDA with the hand-written backward that `msda_backward`
+    replaces (`ops/msda.py`, the custom VJP at line 617) or the matcher
+    whose `lsap_jax` `lsap` replaces (`train/matcher.py`, line 83)."""
     root = pathlib.Path(__file__).resolve().parent
-    found = sorted(root.glob(f"*/ops/{name}"))
-    found = [f for f in found if (f.parent / "msda_pallas.py").exists()]
+    found = sorted(root.glob(f"*/{folder}/{name}"))
+    found = [f for f in found if (f.parent.parent / "ops" / "msda_pallas.py").exists()]
     if len(found) != 1:
         raise FileNotFoundError(f"expected one */ops/{name} under {root}, got {found}")
     return found[0].relative_to(root).as_posix()
@@ -358,7 +378,7 @@ def check_ptxas(name: str, text: str) -> int:
             rows[-1][-1] = int(m.group(1))
     for fn, frame, stores, loads, regs in rows:
         # ..._GLOBAL__N_..._msda_<file>_cu_...<len><kernel>I<type>Li<D>E[Li<L>ELi<P>E]E...
-        names = re.findall(r"msda_[a-z_]+", fn or "")
+        names = re.findall(r"(?:msda|lsap)_[a-z_]+", fn or "")
         kernel = names[-1] if names else fn
         t = re.search(r"I(f|13__nv_bfloat16)Li(\d+)E(?:Li(\d+)ELi\d+E)?", fn or "")
         label = kernel + (f"<{'f32' if t.group(1) == 'f' else 'bf16'}, D={t.group(2)}"
@@ -517,6 +537,144 @@ def phase_backward(msda_cuda, ms_deform_attn_backward_plain):
     return record
 
 
+# ---------------------------------------------------------------------------
+# 3c. the exact assignment (the matcher's kernel)
+# ---------------------------------------------------------------------------
+
+LSAP_OUTPUTS = 7  # cost matrices per image in a train step: last layer, 5 aux, encoder head
+# (name, B, Q, N, kind) of phase 3c: P = LSAP_OUTPUTS * B problems
+LSAP_CASES = [
+    *[(f"n{n}", b, 900, n, "uniform") for b in (1, 2) for n in (1, 5, 50, 100)],
+    *[("square", b, 900, 900, "uniform") for b in (1, 2)],
+    *[("integers", b, 900, 50, "integers") for b in (1, 2)],
+    *[("big_columns", b, 900, 20, "big_columns") for b in (1, 2)],
+    *[("tail", b, 901, 50, "uniform") for b in (1, 2)],
+]
+LSAP_TIMED = ("n5", 1)  # the main path's: phase 5b's 5 boxes on one image
+# total cost against scipy's, relative: the kernel's duals are f32, scipy's f64
+LSAP_TOTAL_TOL = 1e-6
+SCIPY_CALLS = [0]  # calls of the host matcher (`train.matcher.assign_scipy`) in this run
+
+
+def count_scipy_calls(matcher) -> None:
+    """Count every call of the host matcher (the costs copied to the host and
+    solved by scipy) in SCIPY_CALLS."""
+    solve = matcher.assign_scipy
+
+    def counted(cost):
+        SCIPY_CALLS[0] += 1
+        return solve(cost)
+
+    matcher.assign_scipy = counted
+
+
+def matcher_counts():
+    """(launches of the lsap kernel, calls of the host matcher) so far."""
+    from ziragroundingdino_torch.ops.lsap import lsap_cuda
+
+    return lsap_cuda.launches, SCIPY_CALLS[0]
+
+
+def check_matcher(label: str, before, steps: int) -> int:
+    """Each of `steps` train steps since `before` (`matcher_counts()`) matched
+    with one launch of the lsap kernel and made no host matcher call (so no
+    copy of its costs to the host); returns the launches."""
+    lsap, scipy = (now - was for now, was in zip(matcher_counts(), before))
+    if (lsap, scipy) != (steps, 0):
+        raise AssertionError(f"{label}: {lsap} lsap launches and {scipy} host matcher calls in "
+                             f"{steps} train steps, not {steps} and 0")
+    return lsap
+
+
+def lsap_costs(kind: str, p: int, q: int, n: int, seed: int) -> torch.Tensor:
+    """Seeded [P, Q, N] f32 costs on the host: uniform in [0, 10), integers
+    0..7 (many ties), or uniform with the second half of the targets'
+    columns at the matcher's BIG (padded targets)."""
+    rng = np.random.RandomState(seed)
+    if kind == "integers":
+        cost = rng.randint(0, 8, (p, q, n)).astype(np.float32)
+    else:
+        cost = (10.0 * rng.rand(p, q, n)).astype(np.float32)
+    if kind == "big_columns":
+        cost[:, :, n // 2:] = 1.0e7  # train/matcher.py::BIG
+    return torch.from_numpy(cost)
+
+
+def scipy_totals(cost: torch.Tensor) -> np.ndarray:
+    """Each problem's least total cost, by scipy, summed in float64."""
+    from scipy.optimize import linear_sum_assignment
+
+    c = cost.double().numpy()
+    return np.array([c[k][linear_sum_assignment(c[k])].sum() for k in range(len(c))])
+
+
+def host_ms(fn, n: int = 5) -> float:
+    """Median host time of `fn` between two synchronisations of the card."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def phase_lsap(lsap_mod, matcher):
+    """The lsap kernel against `lsap_plain` at every case of LSAP_CASES:
+    assignments exactly equal (the plain version on the host's CPU: the same
+    f32 operations give the same values, and it takes seconds there where
+    the card's step-by-step syncs take minutes), totals equal to scipy's.
+    Times per case: the call (events around it, with the device transpose),
+    the device time (a spin first), the host scipy path on the same costs
+    (copy to the host, `linear_sum_assignment` per problem, copy back), and
+    at the main path's shape the plain version on the card. Returns the
+    timed case's record for the kernels line."""
+    record = None
+    for seed, (name, b, q, n, kind) in enumerate(LSAP_CASES):
+        p = LSAP_OUTPUTS * b
+        cost = lsap_costs(kind, p, q, n, seed)
+        dev = cost.cuda()
+        got = lsap_mod.lsap_cuda(dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        want = lsap_mod.lsap_plain(cost)
+        plain_cpu_ms = (time.perf_counter() - t) * 1e3
+        if not torch.equal(got.cpu(), want):
+            bad = (got.cpu() != want).any(1).nonzero().flatten().tolist()
+            raise AssertionError(f"lsap disagrees with lsap_plain at {name} B={b}: problems {bad}")
+        c64 = cost.double().numpy()
+        ours = np.array([c64[k, want[k].numpy(), np.arange(n)].sum() for k in range(p)])
+        best = scipy_totals(cost)
+        gap = float(np.max(np.abs(ours - best) / np.maximum(1.0, np.abs(best))))
+        if not gap <= LSAP_TOTAL_TOL:
+            raise AssertionError(f"lsap total cost off scipy's at {name} B={b}: {gap:.3e}")
+        ms = time_ms(lambda: lsap_mod.lsap_cuda(dev))
+        device_ms = time_ms(lambda: lsap_mod.lsap_cuda(dev), spin=True)
+        scipy_ms = host_ms(lambda: matcher.assign_scipy(dev))
+        nbytes = p * q * n * 4 + p * n * 8
+        # at least one step a target, ~5 operations a column each (the
+        # update, the compare): far below the bytes
+        ops = p * n * q * 5
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        log(f"lsap {name} B={b} P={p} Q={q} N={n}: assignments equal to lsap_plain, total vs "
+            f"scipy rel gap {gap:.2e}; call_ms={ms:.4f} device_ms={device_ms:.4f} "
+            f"scipy_host_ms={scipy_ms:.4f} plain_cpu_ms={plain_cpu_ms:.1f} "
+            f"bound_ms={bound_ms:.6f} ({bound_by}, {nbytes / 1e6:.3f} MB; latency-bound: "
+            f"share {bound_ms / device_ms:.4f})")
+        if (name, b) == LSAP_TIMED:
+            plain_ms = host_ms(lambda: lsap_mod.lsap_plain(dev), n=3)
+            if not torch.equal(lsap_mod.lsap_plain(dev).cpu(), want):
+                raise AssertionError("lsap_plain on the card disagrees with it on the host")
+            log(f"lsap {name} B={b}: lsap_plain on the card {plain_ms:.2f} ms")
+            record = dict(max_abs_err=0.0, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                          plain_cpu_ms=plain_cpu_ms, scipy_host_ms=scipy_ms,
+                          bound_ms=bound_ms, bound_by=bound_by)
+    return record
+
+
 def tiny_model_kwargs(pc):
     """The tiny Swin/BERT of the repository's tests, 2 + 2 layers, f32."""
     swin = pc.SwinConfig(embed_dim=8, depths=(1, 1, 1, 1), num_heads=(1, 2, 4, 8),
@@ -601,8 +759,8 @@ def phase_train_card_vs_cpu(models, criterion, optim, step, msda_forward, msda_b
     match_batch = criterion.match_batch
     assignments = []
 
-    def record(*args):
-        assignments.append(match_batch(*args))
+    def record(*args, **kwargs):
+        assignments.append(match_batch(*args, **kwargs))
         return assignments[-1]
 
     results = []
@@ -613,7 +771,7 @@ def phase_train_card_vs_cpu(models, criterion, optim, step, msda_forward, msda_b
                 criterion.match_batch = record
             else:
                 replay = iter(assignments)
-                criterion.match_batch = lambda *args: next(replay).to(dev)
+                criterion.match_batch = lambda *args, **kwargs: next(replay).to(dev)
             fwd, bwd = msda_forward.launches, msda_backward.launches
             total, losses = step.compute_losses(model, train_batch(tb, pixels, mask, dev))
             total.backward()
@@ -785,9 +943,11 @@ def phase_train_main_path(build_model, optim, step, tokenizer_mod, transforms, p
     step_ms = []
     torch.cuda.reset_peak_memory_stats()
     msda_forward.launches = msda_backward.launches = msda_backward.binned_launches = 0
+    matched = matcher_counts()
     for i in range(TRAIN_STEPS):
         fwd, bwd, binned = (msda_forward.launches, msda_backward.launches,
                             msda_backward.binned_launches)
+        before = matcher_counts()
         torch.cuda.synchronize()
         t = time.perf_counter()
         metrics = step.train_step(model, opt, batch, gen)
@@ -795,10 +955,11 @@ def phase_train_main_path(build_model, optim, step, tokenizer_mod, transforms, p
         step_ms.append((time.perf_counter() - t) * 1e3)
         launched = (msda_forward.launches - fwd, msda_backward.launches - bwd)
         n_binned = msda_backward.binned_launches - binned
+        check_matcher(f"train step {i}", before, 1)
         loss = metrics["total_loss"].item()
         log(f"train step {i}: {step_ms[-1]:.1f} ms, total_loss {loss:.4f}, grad_norm "
             f"{metrics['grad_norm'].item():.4f}, msda launches (forward, backward) {launched}, "
-            f"{n_binned} of the backward binned")
+            f"{n_binned} of the backward binned, 1 lsap launch")
         if not np.isfinite(loss):
             raise AssertionError(f"train step {i}: loss {loss}")
         if launched != (n_layers, n_layers):
@@ -807,7 +968,8 @@ def phase_train_main_path(build_model, optim, step, tokenizer_mod, transforms, p
         if n_binned != cfg.enc_layers:
             raise AssertionError(f"train step {i}: {n_binned} binned backward calls, not one "
                                  f"per encoder layer ({cfg.enc_layers})")
-    launches = (msda_forward.launches, msda_backward.launches, msda_backward.binned_launches)
+    launches = (msda_forward.launches, msda_backward.launches, msda_backward.binned_launches,
+                check_matcher("train path", matched, TRAIN_STEPS))
     peak = torch.cuda.max_memory_allocated()
     moved = [n for n, p in opt.params.items() if not torch.equal(p.detach(), start[n])]
     changed = [n for n, p in model.named_parameters()
@@ -825,10 +987,58 @@ def phase_train_main_path(build_model, optim, step, tokenizer_mod, transforms, p
     if len(moved) != len(opt.params):
         raise AssertionError(f"trainable parameters did not move: "
                              f"{sorted(set(opt.params) - set(moved))[:5]}")
+    matcher = compare_matchers(model, opt, step, batch, gen, card_line)
     if profile_dir is not None:
         profile_window("train step", lambda: step.train_step(model, opt, batch, gen), 2,
                        profile_dir / "train_trace.json.gz", card_line)
-    return launches, statistics.median(step_ms[1:]), peak
+    return launches, statistics.median(step_ms[1:]), peak, matcher
+
+
+MATCHER_ORDER = ("scipy", "lsap", "lsap", "scipy")  # phase 5b's warm steps, in turns
+
+
+def sync_calls(fn) -> int:
+    """Synchronising CUDA calls made by `fn`, counted as the warnings of
+    `torch.cuda.set_sync_debug_mode("warn")`."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def compare_matchers(model, opt, step, batch, gen, card_line) -> dict:
+    """Warm train steps with each matcher in the same run (MATCHER_ORDER),
+    then one step each under the sync debug mode: the host path copies the
+    costs to the host (one sync a step, all 7 outputs at once), the kernel
+    makes none. Returns the step ms and the syncs of each."""
+    step_ms = {impl: [] for impl in MATCHER_ORDER}
+    for impl in MATCHER_ORDER:
+        before = matcher_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step.train_step(model, opt, batch, gen, matcher_impl=impl)
+        torch.cuda.synchronize()
+        step_ms[impl].append((time.perf_counter() - t) * 1e3)
+        lsap, scipy = (now - was for now, was in zip(matcher_counts(), before))
+        if (lsap, scipy) != ((1, 0) if impl == "lsap" else (0, 1)):
+            raise AssertionError(f"a step with matcher_impl={impl!r}: {lsap} lsap launches, "
+                                 f"{scipy} host matcher calls")
+    syncs = {impl: sync_calls(lambda: step.train_step(model, opt, batch, gen,
+                                                      matcher_impl=impl))
+             for impl in ("scipy", "lsap")}
+    log(f"train path, matcher both ways in turns {MATCHER_ORDER}: step ms "
+        + ", ".join(f"{k} {[round(x, 2) for x in v]}" for k, v in step_ms.items())
+        + f"; synchronising calls per step {syncs}; on {card_line}")
+    if not syncs["lsap"] < syncs["scipy"]:
+        raise AssertionError(f"the lsap step synchronised as often as the host matcher's: "
+                             f"{syncs}")
+    return {"step_ms": step_ms, "sync_calls_per_step": syncs}
 
 
 # ---------------------------------------------------------------------------
@@ -1061,12 +1271,14 @@ def phase_lifecycle(build_model, msda_forward, msda_backward, card_line):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         msda_forward.launches = msda_backward.launches = msda_backward.binned_launches = 0
+        matched = matcher_counts()
         t = time.perf_counter()
         report = train_odinw.main(args)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t
         launches = (msda_forward.launches, msda_backward.launches,
                     msda_backward.binned_launches)
+        matcher_run = [now - was for now, was in zip(matcher_counts(), matched)]
         peak = torch.cuda.max_memory_allocated()
         times = {k: list(v) for k, v in inst.times.items()}
         plain_calls = inst.plain_calls
@@ -1095,6 +1307,9 @@ def phase_lifecycle(build_model, msda_forward, msda_backward, card_line):
         raise AssertionError(f"lifecycle msda launches {launches}, not {want}")
     if plain_calls:
         raise AssertionError(f"the lifecycle called the plain MSDA {plain_calls} times")
+    if matcher_run != [steps, 0]:
+        raise AssertionError(f"lifecycle: (lsap launches, host matcher calls) {matcher_run} in "
+                             f"{steps} train steps, not ({steps}, 0)")
 
     # the merges: only the ZiRa modules change; freeze = trained freeze +
     # scaling * trained branch; branch and scaling reset
@@ -1177,7 +1392,7 @@ def phase_lifecycle(build_model, msda_forward, msda_backward, card_line):
     }
     log("lifecycle: " + json.dumps(numbers))
     shutil.rmtree(root, ignore_errors=True)
-    return launches
+    return launches + (matcher_run[0],)
 
 
 # ---------------------------------------------------------------------------
@@ -1413,6 +1628,7 @@ def _train_and_merge(label, preset, extra, build_model, optim, step, tokenizer_m
     build_s = time.time() - t0
     torch.cuda.reset_peak_memory_stats()
     msda_forward.launches = msda_backward.launches = msda_backward.binned_launches = 0
+    matched = matcher_counts()
     for i in range(FAMILY_STEPS):
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -1421,6 +1637,7 @@ def _train_and_merge(label, preset, extra, build_model, optim, step, tokenizer_m
         step_ms.append((time.perf_counter() - t) * 1e3)
         if not np.isfinite(metrics["total_loss"].item()):
             raise AssertionError(f"{label}: step {i} loss {metrics['total_loss'].item()}")
+    lsap = check_matcher(label, matched, FAMILY_STEPS)
     got = (msda_forward.launches, msda_backward.launches, msda_backward.binned_launches)
     peak = torch.cuda.max_memory_allocated()
     want = (n_layers * FAMILY_STEPS, n_layers * FAMILY_STEPS, cfg.enc_layers * FAMILY_STEPS)
@@ -1460,7 +1677,7 @@ def _train_and_merge(label, preset, extra, build_model, optim, step, tokenizer_m
                 raise AssertionError(f"{label}: merge on the batch, {k}: error {err}, "
                                      f"effect {eff}")
     numbers = {"warm_step_ms": statistics.median(step_ms[1:]), "step_ms": step_ms,
-               "peak_memory_gib": peak / 2**30, "merge_ms": merge_ms}
+               "peak_memory_gib": peak / 2**30, "merge_ms": merge_ms, "lsap_launches": lsap}
     log(f"family {label} ({preset}{', ' + str(extra) if extra else ''}): built in "
         f"{build_s:.1f} s; {len(opt.params)} trainable tensors; {FAMILY_STEPS} steps at "
         f"800x1216 bf16, per-step ms {[round(x, 2) for x in step_ms]} (warm "
@@ -1596,6 +1813,7 @@ def _serve_and_train(preset, build_model, inference, optim, step, tokenizer_mod,
     step_ms = []
     torch.cuda.reset_peak_memory_stats()
     msda_forward.launches = msda_backward.launches = msda_backward.binned_launches = 0
+    matched = matcher_counts()
     for i in range(PET_STEPS):
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -1605,6 +1823,7 @@ def _serve_and_train(preset, build_model, inference, optim, step, tokenizer_mod,
         bad = {k: v.item() for k, v in metrics.items() if not torch.isfinite(v).all()}
         if bad:
             raise AssertionError(f"{preset}: step {i} non-finite {bad}")
+    lsap = check_matcher(preset, matched, PET_STEPS)
     peak = torch.cuda.max_memory_allocated()
     trained = (msda_forward.launches, msda_backward.launches, msda_backward.binned_launches)
     grads = 0 if preset in PET_NO_MSDA_GRAD else 1
@@ -1637,7 +1856,7 @@ def _serve_and_train(preset, build_model, inference, optim, step, tokenizer_mod,
     numbers = {"request_ms": request_ms, "step_ms": step_ms, "warm_step_ms": step_ms[-1],
                "peak_memory_gib": peak / 2**30, "trainable_tensors": len(opt.params),
                "trainable_m": sum(p.numel() for p in opt.params.values()) / 1e6,
-               "train_launches": trained}
+               "train_launches": trained, "lsap_launches": lsap}
     log(f"pet {preset}: built in {build_s:.1f} s; request {request_ms:.1f} ms ({served[0]} "
         f"msda_forward launches); {len(opt.params)} trainable tensors "
         f"({numbers['trainable_m']:.2f} M), {len(no_grad)} without a gradient, all "
@@ -1695,6 +1914,7 @@ def phase_pet_driver(build_model, msda_forward, msda_backward, card_line):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         msda_forward.launches = msda_backward.launches = msda_backward.binned_launches = 0
+        matched = matcher_counts()
         t = time.perf_counter()
         report = train_odinw.main(args)
         torch.cuda.synchronize()
@@ -1702,6 +1922,7 @@ def phase_pet_driver(build_model, msda_forward, msda_backward, card_line):
     finally:
         incremental.augment_caption_with_learned_names = augment
     launches = (msda_forward.launches, msda_backward.launches, msda_backward.binned_launches)
+    check_matcher("phase 8b", matched, PET_ITERS * len(PET_TASKS))
     peak = torch.cuda.max_memory_allocated()
     steps = PET_ITERS * len(PET_TASKS)
     batches = sum(-(-LIFECYCLE_TASKS[n][2] // PET_BATCH) for n in PET_TASKS)
@@ -1730,6 +1951,232 @@ def phase_pet_driver(build_model, msda_forward, msda_backward, card_line):
     shutil.rmtree(root, ignore_errors=True)
     return launches, {"run_s": run_s, "setup_s": setup_s, "peak_memory_gib": peak / 2**30,
                       "report": report}
+
+
+# ---------------------------------------------------------------------------
+# 9. the Predictor: one CUDA graph per key
+# ---------------------------------------------------------------------------
+
+PREDICTOR_CLASSES = ["person", "dog", "cat", "car"]  # request (a)'s 4 categories
+PREDICTOR_REPEATS = 8  # requests of (a)
+PREDICTOR_IMAGES = ((800, 1199), (600, 800), (480, 640))  # (h, w) of request (b)'s images
+# (d): 36 one-token names and their dots, over 64 tokens: text bucket 128
+LONG_CLASSES = (REQUEST_WORDS * 2)[:36]
+
+
+def predictor_image(h: int, w: int, seed: int) -> np.ndarray:
+    """A seeded uint8 image: phase 5's for 800x1199 with seed 0."""
+    if (h, w, seed) == (800, 1199, 0):
+        return synthetic_u8()
+    return np.random.RandomState(seed).randint(0, 256, (h, w, 3)).astype(np.uint8)
+
+
+class _CaptureCount:
+    """While installed, `torch.cuda.graph` records, per capture, the
+    `msda_forward` launches made inside it (the kernels the graph holds)."""
+
+    def __init__(self, msda_forward):
+        self.msda_forward = msda_forward
+        self.launches = []
+
+    def install(self):
+        graph, count = torch.cuda.graph, self
+
+        class counted(graph):
+            def __enter__(self):
+                self._before = count.msda_forward.launches
+                return super().__enter__()
+
+            def __exit__(self, *exc):
+                out = super().__exit__(*exc)
+                count.launches.append(count.msda_forward.launches - self._before)
+                return out
+
+        self._graph = graph
+        torch.cuda.graph = counted
+
+    def restore(self):
+        torch.cuda.graph = self._graph
+
+
+def _pool_mib(pool) -> float | None:
+    """MiB of the segments of the graphs' shared memory pool, from the
+    allocator's snapshot (None where the snapshot does not name pools)."""
+    segments = torch.cuda.memory_snapshot()
+    if not segments or "segment_pool_id" not in segments[0]:
+        return None
+    return sum(s["total_size"] for s in segments
+               if tuple(s["segment_pool_id"]) == tuple(pool)) / 2**20
+
+
+def _replay_vs_eager(predictor, key, msda_forward) -> dict:
+    """The key's graph outputs (the last replay) against the eager forward
+    and post-processing of the same static inputs: bitwise, or within
+    BF16_REL_TOL with equal labels (cuBLAS may pick other algorithms under
+    capture). The eager run's launches are a comparison's, not the path's:
+    they are taken off the count."""
+    prog = predictor._compiled[key]
+    before = msda_forward.launches
+    with torch.inference_mode():
+        eager = predictor._run(prog)
+    torch.cuda.synchronize()
+    msda_forward.launches = before
+    scores, labels, boxes = prog.outputs
+    bitwise = all(torch.equal(a, b) for a, b in zip(prog.outputs, eager))
+    score_err = (scores - eager[0]).abs().max().item()
+    box_err = ((boxes - eager[2]).abs().max() / boxes.abs().max().clamp(min=1.0)).item()
+    labels_equal = torch.equal(labels, eager[1])
+    if not bitwise and not (labels_equal and score_err <= BF16_REL_TOL
+                            and box_err <= BF16_REL_TOL):
+        raise AssertionError(f"predictor {key}: replay vs eager: scores {score_err:.3e}, boxes "
+                             f"{box_err:.3e} of their scale, labels equal {labels_equal}")
+    return {"bitwise": bitwise, "score_max_abs_err": score_err, "box_max_rel_err": box_err,
+            "labels_equal": labels_equal}
+
+
+def _against_predict(inference, transforms, pc, lm, result, caption_classes) -> dict:
+    """Request (a)'s detections against `predict` on the same image: the
+    post-processing of the Predictor (per-category logits, top-k, scaling)
+    applied to `predict`'s raw output. `predict` tokenises into 64 tokens
+    (no text bucket) and the Predictor into 32, so bf16 sums differ; the
+    sorted scores are held at BF16_REL_TOL and the best detection's label
+    and box (within 1% of the image's size) must agree."""
+    from ziragroundingdino_torch.eval.postprocess import scale_to_original, top_k_detections
+    from ziragroundingdino_torch.text.masks import recover_to_cls_logits
+    from ziragroundingdino_torch.text.tokenizer import build_captions, tokenize_captions
+
+    pixels, mask = synthetic_image(transforms, pc)
+    caption = build_captions(caption_classes)
+    (_, _, _), out = _request_outputs(inference, lm, pixels, mask, caption)
+    tb = tokenize_captions(lm.tokenizer, [caption], max_text_len=lm.cfg.max_text_len,
+                           max_categories=4)
+    t = tb.input_ids.shape[1]
+    c2t = torch.from_numpy(tb.cate_to_token_mask).cuda()
+    det = top_k_detections(recover_to_cls_logits(out["pred_logits"][..., :t], c2t, fill=-100.0),
+                           out["pred_boxes"], k=len(result["scores"]))
+    orig = torch.tensor([[800, 1199]], device="cuda")
+    want_scores = det["scores"][0].cpu().numpy()
+    want_boxes = scale_to_original(det["boxes_cxcywh"], orig)[0].cpu().numpy()
+    want_labels = det["labels"][0].cpu().numpy()
+    score_err = float(np.abs(np.sort(result["scores"]) - np.sort(want_scores)).max())
+    # the Predictor's best detection among predict's ten best: same label,
+    # box within 1% of the image's width (near-equal scores may swap ranks)
+    box_err = min((float(np.abs(result["boxes"][0] - b).max()) / 1199
+                   for b, lab in zip(want_boxes[:10], want_labels[:10])
+                   if int(lab) == int(result["labels"][0])), default=float("inf"))
+    top10 = len({tuple(np.round(b, 0)) for b in result["boxes"][:10]}
+                & {tuple(np.round(b, 0)) for b in want_boxes[:10]})
+    log(f"predictor vs predict, request (a): sorted scores max abs diff {score_err:.3e}; the "
+        f"best detection's box within {box_err:.3e} of the width of one of predict's ten best "
+        f"with its label; {top10} of the ten best boxes equal to the pixel")
+    if not (score_err <= BF16_REL_TOL and box_err <= 1e-2):
+        raise AssertionError(f"predictor request (a) vs predict: sorted scores {score_err:.3e}, "
+                             f"best detection {box_err:.3e}")
+    return {"sorted_score_max_abs_diff": score_err, "best_box_rel_diff": box_err,
+            "top10_boxes_equal": top10}
+
+
+def phase_predictor(build_model, inference, tokenizer_mod, transforms, pc, msda_forward,
+                    card_line, profile_dir=None):
+    """The Predictor at full width (dualzerorepbranchgroundingdino, bf16,
+    seeded weights): (a) phase 5's image with a 4-category caption, batch 1,
+    PREDICTOR_REPEATS requests; (b) three images of three sizes with three
+    captions, batch bucket 4; (c) 8 images, batch 8; (d) a caption over 64
+    tokens, text bucket 128. Per key: one capture holding 12 msda_forward
+    launches, the replay against the eager forward of the same inputs, the
+    request ms (median, host clock around the call) and img/s; request (a)
+    against `predict`; the peak memory with every graph alive and the shared
+    pool's size; with `profile_dir`, one replayed request under the
+    profiler. Returns the launches and the numbers."""
+    from ziragroundingdino_torch.utils.predictor import WARMUP_RUNS, Predictor
+
+    t0 = time.time()
+    model = build_model("dualzerorepbranchgroundingdino", device="cuda", dtype="bfloat16",
+                        seed=0)
+    tok = tokenizer_mod.WordPieceTokenizer(tokenizer_mod.make_synthetic_vocab(REQUEST_WORDS))
+    predictor = Predictor(model, tok)
+    n_layers = model.cfg.enc_layers + model.cfg.dec_layers
+    big = predictor_image(800, 1199, 0)
+    requests = {
+        "a": ([big], [PREDICTOR_CLASSES], PREDICTOR_REPEATS),
+        "b": ([predictor_image(h, w, i) for i, (h, w) in enumerate(PREDICTOR_IMAGES)],
+              [PREDICTOR_CLASSES, ["zebra", "horse", "bird"], ["traffic", "light", "boat"]], 4),
+        "c": ([predictor_image(800, 1199, i) for i in range(8)],
+              [PREDICTOR_CLASSES[: 1 + i % 4] for i in range(8)], 4),
+        "d": ([big], [LONG_CLASSES], 4),
+    }
+    counter = _CaptureCount(msda_forward)
+    counter.install()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    msda_forward.launches = 0
+    numbers, keys = {}, {}
+    try:
+        for name, (images, classes, repeats) in requests.items():
+            ms, captures = [], len(counter.launches)
+            for _ in range(repeats):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                result = predictor(images, classes, score_threshold=0.0)
+                ms.append((time.perf_counter() - t) * 1e3)
+            key = list(predictor._compiled)[-1]
+            new = counter.launches[captures:]
+            if len(new) != 1 or new[0] != n_layers:
+                raise AssertionError(f"predictor request ({name}) {key}: captures holding "
+                                     f"{new} msda_forward launches, not one holding {n_layers}")
+            for r in result:
+                if not (np.isfinite(r["scores"]).all() and np.isfinite(r["boxes"]).all()):
+                    raise AssertionError(f"predictor request ({name}): non-finite detections")
+            for img, r in zip(images, result):
+                h, w = img.shape[:2]
+                if not (len(r["scores"]) == predictor.select_k and (r["boxes"] >= 0).all()
+                        and (r["boxes"][:, 0::2] <= w).all()
+                        and (r["boxes"][:, 1::2] <= h).all()):
+                    raise AssertionError(f"predictor request ({name}): boxes outside the image")
+            keys[name] = key
+            numbers[name] = {
+                "key": [key[0], list(key[1]), key[2], key[3]], "images": len(images),
+                "request_ms": ms, "request_median_ms": statistics.median(ms[1:]),
+                "img_per_s": len(images) / statistics.median(ms[1:]) * 1e3,
+                "first_request_ms": ms[0],
+                "replay_vs_eager": _replay_vs_eager(predictor, key, msda_forward)}
+            log(f"predictor request ({name}): key {key}, {len(images)} images, request ms "
+                f"{[round(x, 2) for x in ms]} (first: warm-up and capture), median "
+                f"{numbers[name]['request_median_ms']:.2f}, "
+                f"{numbers[name]['img_per_s']:.2f} img/s; replay vs eager "
+                f"{numbers[name]['replay_vs_eager']}")
+            if name == "a":  # a comparison's launches: off the count
+                before = msda_forward.launches
+                lm = inference.LoadedModel(model=model, tokenizer=tok)
+                numbers[name]["against_predict"] = _against_predict(
+                    inference, transforms, pc, lm, result[0], PREDICTOR_CLASSES)
+                msda_forward.launches = before
+        launches = msda_forward.launches
+    finally:
+        counter.restore()
+    if keys["d"][2] != 128 or len(set(keys.values())) != len(keys):
+        raise AssertionError(f"predictor keys {keys}")
+    if len(predictor._compiled) != len(keys) or len(counter.launches) != len(keys):
+        raise AssertionError(f"{len(counter.launches)} captures for {len(keys)} keys")
+    # per key: the warm-up runs and the capture go through the wrapper; the
+    # replays launch the captured kernels without it
+    if launches != n_layers * (WARMUP_RUNS + 1) * len(keys):
+        raise AssertionError(f"predictor: {launches} msda_forward launches, not "
+                             f"{n_layers} x ({WARMUP_RUNS} warm-up runs + 1 capture) per key")
+    numbers["replays"] = {k: v[2] - 1 for k, v in requests.items()}
+    peak = torch.cuda.max_memory_allocated()
+    numbers["peak_memory_gib"] = peak / 2**30
+    pool = _pool_mib(predictor._pool)
+    numbers["graph_pool_mib"] = pool
+    numbers["setup_s"] = time.time() - t0
+    log(f"predictor: {len(keys)} keys, peak memory {peak / 2**30:.2f} GiB with every graph "
+        f"alive, shared pool {pool if pool is None else round(pool, 1)} MiB; on {card_line}")
+    if profile_dir is not None:  # one replayed request of each key
+        for name, (images, classes, _) in requests.items():
+            numbers[name]["profile"] = profile_window(
+                f"replayed request ({name})", lambda: predictor(images, classes), 2,
+                profile_dir / f"predictor_{name}_trace.json.gz", card_line)
+    return launches, numbers
 
 
 def _merged_ms(intervals) -> float:
@@ -1774,10 +2221,12 @@ def profile_window(label, fn, n, trace_path: pathlib.Path, card_line):
         f"{len(kernels) / n:.0f} device activities per {label}")
     for name, (ms, k) in top:
         log(f"  {ms / n:8.3f} ms/{label} {k // n:5d}x  {name[:110]}")
-    log("profile: " + json.dumps({
-        "what": label, "card": card_line, "profiled_window_ms": window_ms,
-        "device_busy_ms": busy_ms,
-        "top_kernels_ms_per_call": {k: v[0] / n for k, v in top}}))
+    summary = {"what": label, "card": card_line, "profiled_window_ms": window_ms,
+               "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / window_ms,
+               "device_activities_per_call": len(kernels) / n,
+               "top_kernels_ms_per_call": {k: v[0] / n for k, v in top}}
+    log("profile: " + json.dumps(summary))
+    return summary
 
 
 def phase_profile(inference, request, out_dir: pathlib.Path, card_line):
@@ -1847,8 +2296,9 @@ def main() -> int:
     )
     from ziragroundingdino_torch.ops import msda_cuda
     from ziragroundingdino_torch.ops.msda_cuda import msda_backward, msda_forward
+    from ziragroundingdino_torch.ops import lsap as lsap_mod
     from ziragroundingdino_torch.text import tokenizer as tokenizer_mod
-    from ziragroundingdino_torch.train import criterion, optim, step
+    from ziragroundingdino_torch.train import criterion, matcher, optim, step
     from ziragroundingdino_torch.utils import inference
 
     # 1. card
@@ -1870,6 +2320,8 @@ def main() -> int:
     # 3. kernels vs plain
     rec = phase_kernels(msda_forward, ms_deform_attn_plain)
     rec_bwd = phase_backward(msda_cuda, ms_deform_attn_backward_plain)
+    count_scipy_calls(matcher)
+    rec_lsap = phase_lsap(lsap_mod, matcher)
 
     # 4. whole model, card vs CPU: serving, then the train step
     models = tiny_models(pc, build_model, tokenizer_mod)
@@ -1884,13 +2336,13 @@ def main() -> int:
         phase_profile(inference, request, args.profile, card_line)
     del request
     torch.cuda.empty_cache()
-    (train_fwd, train_bwd, train_binned), step_ms, peak = phase_train_main_path(
-        build_model, optim, step, tokenizer_mod, transforms, pc, msda_forward, msda_backward,
-        card_line, args.profile)
+    (train_fwd, train_bwd, train_binned, train_lsap), step_ms, peak, matchers = \
+        phase_train_main_path(build_model, optim, step, tokenizer_mod, transforms, pc,
+                              msda_forward, msda_backward, card_line, args.profile)
     torch.cuda.empty_cache()
 
     # 6. the ZiRa lifecycle at full width
-    life_fwd, life_bwd, life_binned = phase_lifecycle(build_model, msda_forward, msda_backward,
+    life_fwd, life_bwd, life_binned, life_lsap = phase_lifecycle(build_model, msda_forward, msda_backward,
                                                       card_line)
     torch.cuda.empty_cache()
 
@@ -1907,11 +2359,19 @@ def main() -> int:
     pet_launches, pet = phase_pet(build_model, inference, optim, step, tokenizer_mod,
                                   transforms, pc, msda_forward, msda_backward, card_line)
     torch.cuda.empty_cache()
+    matched = matcher_counts()
     pet_driver_launches, pet_driver = phase_pet_driver(build_model, msda_forward,
                                                        msda_backward, card_line)
+    phase_8b_lsap = matcher_counts()[0] - matched[0]
     pet_s = time.time() - t8
+    torch.cuda.empty_cache()
 
-    # 9. result
+    # 9. the Predictor: one CUDA graph per key
+    predictor_launches, predictor = phase_predictor(
+        build_model, inference, tokenizer_mod, transforms, pc, msda_forward, card_line,
+        args.profile)
+
+    # 10. result
     enc, dec = rec["encoder"], rec["decoder"]
     benc = rec_bwd["encoder", "binned"]  # the path of the main path's encoder calls
     kernels = [{
@@ -1939,6 +2399,9 @@ def main() -> int:
         "pet_serving_launches": {k: v[0] for k, v in pet_launches.items()},
         "pet_train_launches": {k: v[1][0] for k, v in pet_launches.items()},
         "pet_driver_launches": pet_driver_launches[0],
+        "predictor_launches": predictor_launches,
+        "predictor_launches_are": "warm-up runs and one capture per key through the wrapper; "
+                                  "each replay launches the captured 12 without it",
         "decoder": {k: dec[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
                                         "max_abs_err", "l2_gather_mb")},
         "decoder_timed_at": "decoder call, bf16 value, B=1 Q=900 S=20197 H=8 D=32 L=P=4",
@@ -1971,6 +2434,30 @@ def main() -> int:
         "launch_ms": benc["launch_ms"],
         "by_path": {f"{name} {path}": {k: v for k, v in r.items() if k != "bound_by"}
                     for (name, path), r in rec_bwd.items()},
+    }, {
+        "name": "lsap",
+        "route": "cuda",
+        "source": "ziragroundingdino_torch/csrc/lsap.cu",
+        "replaces": f"{tpu_kernel_file('matcher.py', 'train')}:83",
+        "launches": train_lsap,
+        "max_abs_err": rec_lsap["max_abs_err"],
+        "ms": rec_lsap["ms"],
+        "plain_ms": rec_lsap["plain_ms"],
+        "bound_ms": rec_lsap["bound_ms"],
+        "bound_by": rec_lsap["bound_by"],
+        "library_ms": None,
+        "timed_at": f"the train step's matching at batch 1: P={LSAP_OUTPUTS} problems, Q=900, "
+                    "N=5, f32 costs; ms and device_ms include the device transpose; "
+                    "max_abs_err: assignments, exactly equal in every phase 3c case; "
+                    "plain_ms: lsap_plain on the card; no PyTorch call solves an assignment, "
+                    "scipy_host_ms is the host path (copy, scipy, copy back)",
+        "device_ms": rec_lsap["device_ms"],
+        "scipy_host_ms": rec_lsap["scipy_host_ms"],
+        "plain_cpu_ms": rec_lsap["plain_cpu_ms"],
+        "lifecycle_launches": life_lsap,
+        "family_train_launches": {k: v["lsap_launches"] for k, v in family.items()},
+        "pet_train_launches": {k: v["lsap_launches"] for k, v in pet.items()},
+        "phase_8b_launches": phase_8b_lsap,
     }]
     log("train_step: " + json.dumps({
         "warm_median_ms": step_ms, "peak_memory_gib": peak / 2**30,
@@ -1983,6 +2470,11 @@ def main() -> int:
         "presets": pet, "driver": pet_driver, "phase_s": pet_s,
         "at": "800x1216, bf16, batch 1, 1 request and 2 steps each; driver: dtgroundingdino, "
               f"batch {PET_BATCH}, {len(PET_TASKS)} tasks x {PET_ITERS} steps, 600x800 originals"}))
+    log("phase 9: " + json.dumps({
+        "predictor": predictor, "train_step_matcher": matchers,
+        "at": "dualzerorepbranchgroundingdino, bf16, 800x1216 bucket; (a) batch 1, (b) 3 "
+              "images in batch 4, (c) batch 8, (d) text bucket 128; train_step_matcher: "
+              "phase 5b's batch, warm steps in turns"}))
     log(json.dumps({"kernels": kernels}))
     log(card_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -31,7 +31,7 @@ import pytest
 import torch
 
 from tests.test_torch_pet import preset_overrides
-from tests.torch_common import TinyPair, port_config
+from tests.torch_common import TinyPair, pinned_matcher, port_config
 from ziragroundingdino_torch.models import build_model
 from ziragroundingdino_torch.train import criterion as pcrit
 from ziragroundingdino_torch.train import optim as poptim
@@ -163,7 +163,7 @@ def stepped(request):
     model = trainable_model(tp)
     order = iter(assignments)
     orig = pcrit.match_batch
-    pcrit.match_batch = lambda *a, **k: _t(next(order)).long()
+    pcrit.match_batch = pinned_matcher(order)
     try:
         total, losses = pstep.compute_losses(model, {k: _t(v).clone()
                                                      for k, v in batch.items()})

@@ -30,7 +30,14 @@ import pytest
 import torch
 
 from tests.test_torch_presets import preset_overrides
-from tests.torch_common import TinyPair, assert_close, port_config, random_params, random_stats
+from tests.torch_common import (
+    TinyPair,
+    assert_close,
+    pinned_matcher,
+    port_config,
+    random_params,
+    random_stats,
+)
 from ziragroundingdino_torch.models import build_model
 from ziragroundingdino_torch.models import zira as pzira
 from ziragroundingdino_torch.models.layers import init_weights
@@ -273,8 +280,7 @@ def _trainable_model(tp):
 
 
 def _pin(monkeypatch, assignments):
-    order = iter(assignments)
-    monkeypatch.setattr(pcrit, "match_batch", lambda *a, **k: _t(next(order)).long())
+    monkeypatch.setattr(pcrit, "match_batch", pinned_matcher(iter(assignments)))
 
 
 def _broadcast(mask, params):

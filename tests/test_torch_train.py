@@ -76,9 +76,11 @@ def _predictions(seed=0, b=2, q=12, c=4, n=5):
 
 
 def test_cost_matrix_and_assignment_match_jax():
-    """The cost matrix at 1e-5; the assignment equals `match_batch(impl=
-    "scipy")`; on seeded costs with invalid (BIG) columns, the port's
-    assignment has the total cost of `lsap_jax`."""
+    """The cost matrix at 1e-5; both matchers against JAX's: the port's
+    `impl="scipy"` assignment equals JAX's `impl="scipy"`, its default
+    `impl="lsap"` equals JAX's default `impl="jax"` (`lsap_jax`). On seeded
+    costs with invalid (BIG) columns, the scipy path has `lsap_jax`'s total
+    cost and the lsap path its assignment."""
     import jax
     from ziragroundingdino_tpu.train import matcher as jmatch
 
@@ -86,14 +88,17 @@ def test_cost_matrix_and_assignment_match_jax():
     want = jax.vmap(jmatch.pairwise_cost_matrix)(*pred)
     got = pmatch.pairwise_cost_matrix(*map(_t, pred))
     np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=TOL)
-    np.testing.assert_array_equal(pmatch.match_batch(*map(_t, pred)).numpy(),
+    np.testing.assert_array_equal(pmatch.match_batch(*map(_t, pred), impl="scipy").numpy(),
                                   jmatch.match_batch(*pred, impl="scipy"))
+    np.testing.assert_array_equal(pmatch.match_batch(*map(_t, pred)).numpy(),
+                                  jmatch.match_batch(*pred, impl="jax"))
 
     rng = np.random.RandomState(3)
     cost = rng.rand(3, 9, 6).astype(np.float32)
     cost[:, :, 4:] = pmatch.BIG  # two invalid target columns per image
-    ours = pmatch.assign(_t(cost)).numpy()
+    ours = pmatch.assign(_t(cost), impl="scipy").numpy()
     theirs = np.asarray(jax.vmap(jmatch.lsap_jax)(cost))
+    np.testing.assert_array_equal(pmatch.assign(_t(cost), impl="lsap").numpy(), theirs)
     for i in range(3):
         assert len(set(ours[i])) == 6
         np.testing.assert_allclose(cost[i, ours[i], range(6)].sum(),
@@ -120,10 +125,11 @@ def test_criterion_matches_jax_given_one_assignment(monkeypatch):
                 "aux_outputs": [{"pred_logits": l1, "pred_boxes": b1}],
                 "interm_outputs": {"pred_logits": l2, "pred_boxes": b2}}
 
+    from tests.torch_common import pinned_matcher
+
     pinned(jcrit)
     want = jcrit.set_criterion(nest(np.asarray), labels, tgt, valid)
-    assignments = [_t(a).long() for a in assignments]
-    pinned(pcrit)
+    monkeypatch.setattr(pcrit, "match_batch", pinned_matcher(iter(assignments)))
     got = pcrit.set_criterion(nest(_t), *map(_t, (labels, tgt, valid)))
     assert sorted(got) == sorted(want)
     for k in want:
@@ -283,8 +289,9 @@ def _torch_batch(batch):
 
 
 def _pin_port_matcher(monkeypatch, assignments):
-    order = iter(assignments)
-    monkeypatch.setattr(pcrit, "match_batch", lambda *a, **k: _t(next(order)).long())
+    from tests.torch_common import pinned_matcher
+
+    monkeypatch.setattr(pcrit, "match_batch", pinned_matcher(iter(assignments)))
 
 
 def test_trainable_set_matches_jax(step_setup):

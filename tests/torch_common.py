@@ -119,6 +119,21 @@ def tiny_pair():
     return TinyPair()
 
 
+def pinned_matcher(order):
+    """A stand-in for the port's `train.criterion.match_batch` that replays
+    the assignments of the iterator `order` ([B, N] each, in
+    `set_criterion`'s order). The criterion matches its outputs in one call
+    on them stacked along the batch, so a call takes as many as it holds."""
+
+    def match(pred_logits, *args, **kwargs):
+        parts = []
+        while sum(len(p) for p in parts) < pred_logits.shape[0]:
+            parts.append(np.asarray(next(order)))
+        return torch.from_numpy(np.concatenate(parts)).long()
+
+    return match
+
+
 def assert_close(got, want, atol, rtol=0.0, what=""):
     got = got.detach().float().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
     np.testing.assert_allclose(got, np.asarray(want, np.float32), atol=atol, rtol=rtol,

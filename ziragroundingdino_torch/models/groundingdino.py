@@ -48,6 +48,7 @@ import torch
 from torch import nn
 
 from ziragroundingdino_torch.config import GroundingDINOConfig
+from ziragroundingdino_torch.device import device_constant
 from ziragroundingdino_torch.models.adapters import MoeAdapter, cet_adapter
 from ziragroundingdino_torch.models.bert import BertEncoder
 from ziragroundingdino_torch.models.heads import ContrastiveEmbed
@@ -263,8 +264,8 @@ class GroundingDINO(nn.Module):
         cfg = self.cfg
         cd = cfg.torch_dtype
         if pixels.dtype == torch.uint8:
-            mean = torch.tensor(cfg.pixel_mean, dtype=torch.float32, device=pixels.device)
-            std = torch.tensor(cfg.pixel_std, dtype=torch.float32, device=pixels.device)
+            mean = device_constant(tuple(cfg.pixel_mean), pixels.device)
+            std = device_constant(tuple(cfg.pixel_std), pixels.device)
             pixels = ((pixels.float() - mean) / std).masked_fill(~mask[..., None], 0.0)
 
         # ---- text path

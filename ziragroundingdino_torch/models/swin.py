@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ziragroundingdino_torch.config import SwinConfig
+from ziragroundingdino_torch.device import DeviceTables
 from ziragroundingdino_torch.models.layers import LayerNorm, Linear, drop_path
 
 
@@ -58,25 +59,6 @@ def _shift_attn_mask(hp: int, wp: int, window: int, shift: int) -> np.ndarray:
     return np.where(diff != 0, -100.0, 0.0).astype(np.float32)
 
 
-class _DeviceTables:
-    """Per-device tensor copies of static numpy tables. A table is made
-    outside inference mode even when the first call runs in it (`predict`),
-    so that a later train step may save it for the backward (`finetune`
-    trains Swin)."""
-
-    def __init__(self):
-        self._cache: Dict[Tuple, torch.Tensor] = {}
-
-    def get(self, key: Tuple, device: torch.device, make) -> torch.Tensor:
-        k = key + (str(device),)
-        t = self._cache.get(k)
-        if t is None:
-            with torch.inference_mode(False):
-                t = torch.as_tensor(make(), device=device)
-            self._cache[k] = t
-        return t
-
-
 class WindowAttention(nn.Module):
     """W-MSA with relative position bias (`swin_transformer.py:77-175`)."""
 
@@ -90,7 +72,7 @@ class WindowAttention(nn.Module):
         self.qkv = Linear(dim, 3 * dim, bias=qkv_bias, compute_dtype=compute_dtype)
         self.proj = Linear(dim, dim, compute_dtype=compute_dtype)
         self.compute_dtype = compute_dtype
-        self._tables = _DeviceTables()
+        self._tables = DeviceTables()
 
     def init_weights(self, gen: torch.Generator) -> None:
         with torch.no_grad():
@@ -144,7 +126,7 @@ class SwinBlock(nn.Module):
         self.attn = WindowAttention(dim, window, num_heads, qkv_bias, compute_dtype)
         self.norm2 = LayerNorm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), compute_dtype)
-        self._tables = _DeviceTables()
+        self._tables = DeviceTables()
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

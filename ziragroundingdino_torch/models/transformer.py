@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from ziragroundingdino_torch.config import GroundingDINOConfig
+from ziragroundingdino_torch.device import device_constant
 from ziragroundingdino_torch.models.adapters import Adapter, zero_loss
 from ziragroundingdino_torch.models.fusion import BiAttentionBlock
 from ziragroundingdino_torch.models.heads import ContrastiveEmbed
@@ -102,8 +103,8 @@ class MSDeformAttn(nn.Module):
         ref = reference_points.float()
         if ref.shape[-1] == 2:
             # offsets are normalized by each level's (w, h)
-            wh = torch.tensor([(w_, h_) for h_, w_ in spatial_shapes],
-                              dtype=torch.float32, device=query.device)
+            wh = device_constant(tuple((int(w_), int(h_)) for h_, w_ in spatial_shapes),
+                                 query.device)
             loc = ref[:, :, None, :, None, :] + offsets / wh[None, None, None, :, None, :]
         else:
             loc = (ref[:, :, None, :, None, :2]

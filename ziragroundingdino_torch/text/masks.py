@@ -96,11 +96,8 @@ def recover_to_cls_logits(
 
     token_logits [B, Q, T], cate_to_token_mask [B, C, T] bool -> [B, Q, C].
     """
-    masked = torch.where(
-        cate_to_token_mask[:, None, :, :],
-        token_logits[:, :, None, :],
-        torch.tensor(-float("inf"), dtype=token_logits.dtype, device=token_logits.device),
-    )
+    masked = torch.where(cate_to_token_mask[:, None, :, :], token_logits[:, :, None, :],
+                         -float("inf"))
     out = masked.amax(dim=-1)
     has_tokens = cate_to_token_mask.any(dim=-1)
     return torch.where(has_tokens[:, None, :], out, torch.full_like(out, fill))

@@ -4,8 +4,11 @@ of the JAX package's `train/criterion.py` (reference `criterion/criterion.py:
 22-40`, `sigmoid_focal_loss` `models/GroundingDINO/utils.py:137-169`).
 
 Targets are [B, N] arrays with a validity mask; the assignment is
-`matcher.match_batch`'s [B, N] target -> query indices. `num_boxes` is the
-count of valid targets in the batch, at least 1.
+`matcher.match_batch`'s [B, N] target -> query indices. The outputs (last
+layer, aux layers, encoder head) all hold the same number of queries, so
+they are matched together: one `match_batch` call on the outputs stacked
+along the batch, one kernel launch on the card. `num_boxes` is the count of
+valid targets in the batch, at least 1.
 """
 
 from __future__ import annotations
@@ -56,23 +59,27 @@ def _losses_for_output(pred_logits, pred_boxes, tgt_labels, tgt_boxes, tgt_valid
 
 
 def set_criterion(outputs: Dict, tgt_labels: torch.Tensor, tgt_boxes: torch.Tensor,
-                  tgt_valid: torch.Tensor, alpha: float = 0.25,
+                  tgt_valid: torch.Tensor, matcher_impl: str = "lsap", alpha: float = 0.25,
                   gamma: float = 2.0) -> Dict[str, torch.Tensor]:
-    """Last layer, aux `_{i}` and two-stage `_enc` losses, unweighted; each
-    output is matched on its own, in that order."""
+    """Last layer, aux `_{i}` and two-stage `_enc` losses, unweighted. Each
+    output is matched on its own costs; all are solved in one
+    `match_batch(..., impl=matcher_impl)` call."""
     num_boxes = tgt_valid.float().sum().clamp(min=1.0)
-
-    def one(out):
-        assignment = match_batch(out["pred_logits"], out["pred_boxes"], tgt_labels, tgt_boxes,
-                                 tgt_valid)
-        return _losses_for_output(out["pred_logits"], out["pred_boxes"], tgt_labels, tgt_boxes,
-                                  tgt_valid, assignment, num_boxes, alpha, gamma)
-
-    losses = dict(one(outputs))
-    for i, aux in enumerate(outputs.get("aux_outputs", ())):
-        losses.update({f"{k}_{i}": v for k, v in one(aux).items()})
+    suffixed = [("", outputs)]
+    suffixed += [(f"_{i}", aux) for i, aux in enumerate(outputs.get("aux_outputs", ()))]
     if "interm_outputs" in outputs:
-        losses.update({f"{k}_enc": v for k, v in one(outputs["interm_outputs"]).items()})
+        suffixed.append(("_enc", outputs["interm_outputs"]))
+    k = len(suffixed)
+    with torch.no_grad():
+        logits = torch.cat([o["pred_logits"].float() for _, o in suffixed])
+        boxes = torch.cat([o["pred_boxes"].float() for _, o in suffixed])
+    assignments = match_batch(logits, boxes, tgt_labels.repeat(k, 1), tgt_boxes.repeat(k, 1, 1),
+                              tgt_valid.repeat(k, 1), impl=matcher_impl).chunk(k)
+    losses = {}
+    for (suffix, out), assignment in zip(suffixed, assignments):
+        one = _losses_for_output(out["pred_logits"], out["pred_boxes"], tgt_labels, tgt_boxes,
+                                 tgt_valid, assignment, num_boxes, alpha, gamma)
+        losses.update({name + suffix: v for name, v in one.items()})
     return losses
 
 

@@ -4,9 +4,14 @@ weights class 2, bbox 5, giou 2).
 
 Targets are padded [B, N] arrays with a validity mask; invalid target
 columns cost `BIG`, so they take the leftover queries without changing the
-optimum of the valid sub-problem. The exact assignment runs on the host with
-`scipy.optimize.linear_sum_assignment`, the reference's own execution model
-(`matcher.py:143-147`) and the JAX package's `impl="scipy"`.
+optimum of the valid sub-problem. Two ways to the exact assignment, as the
+JAX package has (`impl="jax"` / `"scipy"` there):
+  * `impl="lsap"` (the default): `ops.lsap.lsap`, Jonker-Volgenant on the
+    cost's device: the hand-written kernel `csrc/lsap.cu` on the card, with
+    no copy to the host, and its plain version on the CPU;
+  * `impl="scipy"`: the costs copied to the host and solved by
+    `scipy.optimize.linear_sum_assignment`, the reference's own execution
+    model (`matcher.py:143-147`), which syncs with the host in every call.
 
 Output convention: `assignment[b, n]` is the query matched to target n
 (mask invalid entries with the target validity downstream).
@@ -18,6 +23,7 @@ import numpy as np
 import torch
 
 from ziragroundingdino_torch.ops.box_ops import box_cxcywh_to_xyxy, generalized_box_iou_matrix
+from ziragroundingdino_torch.ops.lsap import lsap
 
 BIG = 1.0e7
 
@@ -56,7 +62,7 @@ def pairwise_cost_matrix(
     return torch.where(tgt_valid[:, None, :], cost, torch.full_like(cost, BIG))
 
 
-def assign(cost: torch.Tensor) -> torch.Tensor:
+def assign_scipy(cost: torch.Tensor) -> torch.Tensor:
     """Exact minimum-cost assignment of [B, Q, N] costs (N <= Q), on the host:
     returns [B, N] int64 query indices on the cost's device."""
     from scipy.optimize import linear_sum_assignment
@@ -69,8 +75,18 @@ def assign(cost: torch.Tensor) -> torch.Tensor:
     return torch.from_numpy(out).to(cost.device)
 
 
+def assign(cost: torch.Tensor, impl: str = "lsap") -> torch.Tensor:
+    """[B, Q, N] costs -> [B, N] int64 query indices on the cost's device."""
+    if impl == "lsap":
+        return lsap(cost.detach().float().contiguous())
+    if impl == "scipy":
+        return assign_scipy(cost)
+    raise ValueError(f"unknown matcher impl {impl!r}: 'lsap' or 'scipy'")
+
+
 @torch.no_grad()
-def match_batch(pred_logits, pred_boxes, tgt_labels, tgt_boxes, tgt_valid) -> torch.Tensor:
+def match_batch(pred_logits, pred_boxes, tgt_labels, tgt_boxes, tgt_valid,
+                impl: str = "lsap") -> torch.Tensor:
     """[B, N] query index per target; not differentiable (`matcher.py:81`)."""
     return assign(pairwise_cost_matrix(pred_logits, pred_boxes, tgt_labels, tgt_boxes,
-                                       tgt_valid))
+                                       tgt_valid), impl)

@@ -40,9 +40,10 @@ def class_logits_from_tokens(token_logits: torch.Tensor, cate_to_token_mask: tor
 
 
 def compute_losses(model: GroundingDINO, batch: Dict[str, torch.Tensor],
-                   generator: Optional[torch.Generator] = None
+                   generator: Optional[torch.Generator] = None, matcher_impl: str = "lsap"
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """(total loss, {name: loss}) of one batch, the model in train mode."""
+    """(total loss, {name: loss}) of one batch, the model in train mode;
+    `matcher_impl` as `train.matcher.match_batch`'s `impl`."""
     cfg = model.cfg
     out = model(batch["pixels"], batch["mask"], {k: batch[k] for k in TEXT_KEYS}, train=True,
                 generator=generator)
@@ -55,7 +56,8 @@ def compute_losses(model: GroundingDINO, batch: Dict[str, torch.Tensor],
     if "aux_outputs" in out:
         outputs["aux_outputs"] = [to_cls(a) for a in out["aux_outputs"]]
         outputs["interm_outputs"] = to_cls(out["interm_outputs"])
-    losses = set_criterion(outputs, batch["gt_labels"], batch["gt_boxes"], batch["gt_valid"])
+    losses = set_criterion(outputs, batch["gt_labels"], batch["gt_boxes"], batch["gt_valid"],
+                           matcher_impl=matcher_impl)
     total = weighted_total(losses)
 
     # ZiRa zero-interference losses (`groundingdino_dual_zero_rep_branch.py:
@@ -76,11 +78,13 @@ def compute_losses(model: GroundingDINO, batch: Dict[str, torch.Tensor],
 
 
 def train_step(model: GroundingDINO, optimizer: Optimizer, batch: Dict[str, torch.Tensor],
-               generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+               generator: Optional[torch.Generator] = None,
+               matcher_impl: str = "lsap") -> Dict[str, torch.Tensor]:
     """One step; returns the losses and `grad_norm` (the trainable
     gradients' global norm before the clip) as detached tensors on the
-    model's device."""
-    total, losses = compute_losses(model, batch, generator)
+    model's device. With the default `matcher_impl="lsap"` the step makes
+    no round trip to the host for the matcher."""
+    total, losses = compute_losses(model, batch, generator, matcher_impl)
     if total.requires_grad:
         total.backward()
     metrics = {k: v.detach() for k, v in losses.items()}

@@ -18,6 +18,7 @@ uninterrupted run draws there without saving a generator's state.
 
 from __future__ import annotations
 
+import functools
 import json
 import logging
 import os
@@ -105,12 +106,13 @@ class Trainer:
         loader: Iterable[Dict[str, np.ndarray]],
         cfg: TrainConfig,
         step_fn: Optional[Callable] = None,  # default: train.step.train_step
+        matcher_impl: str = "lsap",  # the default step's matcher
     ):
         self.model = model
         self.optimizer = optimizer
         self.loader = iter(loader)
         self.cfg = cfg
-        self.step_fn = step_fn or train_step
+        self.step_fn = step_fn or functools.partial(train_step, matcher_impl=matcher_impl)
         self.device = next(model.parameters()).device
 
     def train(self, start_iter: int = 0, max_iter: Optional[int] = None) -> None:
