@@ -63,8 +63,10 @@ Phases, in order (any failure raises, and the script exits non-zero):
      ODinW tasks (3 and 2 classes, 600x800 PPM originals): 4 train steps a
      task at batch 2 with learned-name captions and a checkpoint every 2,
      the merge, the prompt capture, 2 replay iterations, the eval of both
-     tasks; 12 `msda_forward` launches per train step and per eval batch,
-     12 `msda_backward` per train step (6 binned), the plain MSDA never;
+     tasks; `train_odinw` trains with remat on, as JAX's: 18 `msda_forward`
+     launches per train step (12, and the 6 encoder layers recomputed in
+     the backward) and 12 per eval batch, 12 `msda_backward` per train step
+     (6 binned), the plain MSDA never;
      after each merge every non-ZiRa tensor unchanged, each freeze branch
      the trained freeze + scaling * branch, the branches and scalings
      reset, the checkpoint's prompt memory in the chain; on an eval batch
@@ -105,10 +107,11 @@ Phases, in order (any failure raises, and the script exits non-zero):
        the box heads' zero-init last layers seeded) and moved (Swin's and BERT's in
        `finetune`; none in `prompttune`);
      8b. `scripts/train_odinw.main --preset dtgroundingdino` on phase 6's
-       two synthetic tasks, 2 steps each, the second task's caption with
-       the first's classes, prompt capture and eval: only the CET adapter
-       changes; a `phase 8: {...}` line with each preset's request ms,
-       warm step ms, peak memory and launches;
+       two synthetic tasks, 2 steps each (remat on: 18 `msda_forward`
+       launches a step), the second task's caption with the first's
+       classes, prompt capture and eval: only the CET adapter changes; a
+       `phase 8: {...}` line with each preset's request ms, warm step ms,
+       peak memory and launches;
   9. the Predictor (`utils/predictor.py`) at full width: (a) phase 5's
      image with a 4-category caption, batch 1, 8 requests; (b) three images
      of three sizes with three captions, batch bucket 4; (c) 8 images; (d)
@@ -118,9 +121,40 @@ Phases, in order (any failure raises, and the script exits non-zero):
      (a) against `predict`; the peak memory with every graph alive and the
      shared pool; with --profile a replayed request's idle share; a
      `phase 9: {...}` line, with phase 5b's matcher comparison;
-  Phases 5b, 6, 7c and 8 check one `lsap` launch and no host matcher call
-  (no copy of the costs to the host) per train step.
-  10. result: a `kernels` JSON line, the nvidia-smi line, and last
+  10. every architecture switch of the JAX model at full width (BERT-base,
+     d = 256, 6 + 6 layers, 900 queries, bf16, 800x1216), seeded weights in
+     the reference's format under `build/phase10` (removed after):
+     10a. GroundingDINO-B: a vanilla Swin-B-384 checkpoint (window 12)
+       through `load_model(..., backbone="swin_B_384_22k")` with no key
+       missing, unexpected or mismatched, 4 `predict` requests (12
+       launches each), the demo with `--config-overrides` (its detections
+       `predict`'s), one Predictor key (batch 1, text bucket 32): one
+       capture of 12 launches, the replay bitwise the eager forward; with
+       --profile, where a request's time goes (`swin_b_trace.json.gz`);
+     10b. that checkpoint loaded non-strictly into the ZiRa preset three
+       times, remat off, off again and on, its branches seeded alike: the same first step
+       with dropout from one generator seed, losses bitwise equal, every
+       trainable gradient within REMAT_GRAD_TOL of its scale (a second
+       step without remat gives the floor of the atomics), 12 against
+       18 `msda_forward` launches and 12 `msda_backward` (6 binned) each,
+       step ms and peak each way; then phase 7c's 2 steps and merge with
+       remat on;
+     10c. the ZiRa preset on ResNet-50 with learned positions: one
+       request, phase 7c's 2 steps and merge; one `finetune` step in
+       which the frozen BN's four tensors (53 BNs) and the learned tables
+       get a gradient and move, as in JAX;
+     10d. the vanilla model on Swin-L 384: one request and its peak;
+     10e. one request each with `use_text_enhancer`, `use_fusion_layer`,
+       `use_text_cross_attention`, `embed_init_tgt` and
+       `sub_sentence_present` off: finite detections, the parameter count
+       lower by exactly what the switch removes;
+     10f. `train_odinw --config-overrides` (Swin-B) from the vanilla
+       Swin-B checkpoint on phase 6's tasks, 2 steps each, remat on by
+       default (the config it built checked), merge and eval: only ZiRa
+       tensors change; a `phase 10: {...}` line;
+  Phases 5b, 6, 7c, 8 and 10 check one `lsap` launch and no host matcher
+  call (no copy of the costs to the host) per train step.
+  11. result: a `kernels` JSON line, the nvidia-smi line, and last
      `{"ok": true, "device": {...}}`.
 
 It needs a CUDA card and the repository's `ziragroundingdino_torch` package
@@ -131,6 +165,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import io
 import json
 import pathlib
@@ -1302,7 +1337,8 @@ def phase_lifecycle(build_model, msda_forward, msda_backward, card_line):
     if (steps, batches) != (want_steps, want_batches):
         raise AssertionError(f"{steps} steps and {batches} eval batches, "
                              f"not {want_steps} and {want_batches}")
-    want = (n_layers * (steps + batches), n_layers * steps, n_enc * steps)
+    # `train_odinw` trains with remat: each step recomputes the encoder's 6
+    want = (n_layers * (steps + batches) + n_enc * steps, n_layers * steps, n_enc * steps)
     if launches != want:
         raise AssertionError(f"lifecycle msda launches {launches}, not {want}")
     if plain_calls:
@@ -1640,7 +1676,8 @@ def _train_and_merge(label, preset, extra, build_model, optim, step, tokenizer_m
     lsap = check_matcher(label, matched, FAMILY_STEPS)
     got = (msda_forward.launches, msda_backward.launches, msda_backward.binned_launches)
     peak = torch.cuda.max_memory_allocated()
-    want = (n_layers * FAMILY_STEPS, n_layers * FAMILY_STEPS, cfg.enc_layers * FAMILY_STEPS)
+    want = (_forward_launches(cfg) * FAMILY_STEPS, n_layers * FAMILY_STEPS,
+            cfg.enc_layers * FAMILY_STEPS)
     if got != want:
         raise AssertionError(f"{label}: msda launches {got}, not {want}")
     changed = [n for n, p in model.named_parameters()
@@ -1926,7 +1963,7 @@ def phase_pet_driver(build_model, msda_forward, msda_backward, card_line):
     peak = torch.cuda.max_memory_allocated()
     steps = PET_ITERS * len(PET_TASKS)
     batches = sum(-(-LIFECYCLE_TASKS[n][2] // PET_BATCH) for n in PET_TASKS)
-    want = (n_layers * (steps + batches), n_layers * steps, n_enc * steps)
+    want = (n_layers * (steps + batches) + n_enc * steps, n_layers * steps, n_enc * steps)
     log(f"pet driver: dtgroundingdino through train_odinw in {run_s:.1f} s ({steps} steps, "
         f"{batches} eval batches); msda launches {launches}; captions {captions}; "
         f"report {report}; peak {peak / 2**30:.2f} GiB; on {card_line}")
@@ -2179,6 +2216,504 @@ def phase_predictor(build_model, inference, tokenizer_mod, transforms, pc, msda_
     return launches, numbers
 
 
+# ---------------------------------------------------------------------------
+# 10. every architecture switch at full width: GroundingDINO-B, ResNet-50
+# with learned positions, Swin-L, the ablation switches, `train_odinw` on Swin-B
+# ---------------------------------------------------------------------------
+
+SWIN_B, SWIN_L = "swin_B_384_22k", "swin_L_384_22k"
+REMAT = {"use_checkpoint": True, "use_transformer_ckpt": True}
+# a step against another from identical weights and generator, each
+# trainable gradient times its own largest magnitude: `msda_backward` adds
+# d_value with float atomics in no fixed order and rounds it to bf16, so a
+# one-ulp f32 difference may move a bf16 d_value by 2**-8 of itself; that
+# carries into every gradient upstream of the encoder (the conv branches).
+# Held for a step without remat against a second one (the floor) and for
+# one with remat; BF16_REL_TOL's bound
+REMAT_GRAD_TOL = 1e-2
+SWIN_B_REQUESTS = 4
+# (switch, the parameter names it takes away when off; none: it changes
+# only how BERT reads the text)
+ABLATIONS = (("use_text_enhancer", ("transformer.encoder.text_layers.",)),
+             ("use_fusion_layer", ("transformer.encoder.fusion_layers.",)),
+             ("use_text_cross_attention", (".ca_text.", ".catext_norm.")),
+             ("embed_init_tgt", ("transformer.tgt_embed.",)),
+             ("sub_sentence_present", ()))
+# the frozen BN tensors and learned tables that `finetune` trains on ResNet
+FROZEN_BN = ("running_mean", "running_var")
+
+
+def _seeded_deformable(model, seed: int = 6):
+    """The deformable layers' zero-init `sampling_offsets` and
+    `attention_weights` kernels drawn from N(0, 0.01 / fan_in), as a trained
+    checkpoint has them: at their init no gradient reaches the query, so
+    none would reach the positions (`backbone.1`) that it adds."""
+    from ziragroundingdino_torch.models.transformer import MSDeformAttn
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, MSDeformAttn):
+                for lin in (mod.sampling_offsets, mod.attention_weights):
+                    lin.weight.copy_(0.1 * torch.randn(lin.weight.shape, generator=g)
+                                     / lin.in_features ** 0.5)
+
+
+def _forward_launches(cfg) -> int:
+    """`msda_forward` launches of one train step: every deformable layer's,
+    and again each encoder layer's when the backward recomputes it."""
+    return cfg.enc_layers + cfg.dec_layers + (cfg.enc_layers if cfg.use_transformer_ckpt else 0)
+
+
+def _serve_once(label, preset, overrides, build_model, inference, tokenizer_mod, transforms, pc,
+                msda_forward, msda_backward, card_line, seed_rep=False):
+    """Build `preset` with `overrides` at full width (bf16, seeded weights;
+    its ZiRa branches seeded with `seed_rep`), answer one `predict` request
+    on phase 5's image: 12 `msda_forward` launches, no backward, finite
+    detections of the right shapes. Returns its numbers and its config."""
+    t0 = time.time()
+    model = build_model(preset, device="cuda", dtype="bfloat16", seed=0, **overrides)
+    if seed_rep:
+        _seeded_rep_modules(model)
+    cfg = model.cfg
+    n_params = sum(p.numel() for p in model.parameters())
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    lm = inference.LoadedModel(model=model, tokenizer=tokenizer_mod.WordPieceTokenizer(
+        tokenizer_mod.make_synthetic_vocab(REQUEST_WORDS)))
+    pixels, mask = synthetic_image(transforms, pc)
+    torch.cuda.reset_peak_memory_stats()
+    msda_forward.launches = msda_backward.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _, out = _request_outputs(inference, lm, pixels, mask, REQUEST_CAPTIONS[0])
+    torch.cuda.synchronize()
+    request_ms = (time.perf_counter() - t) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    served = (msda_forward.launches, msda_backward.launches)
+    n_layers = cfg.enc_layers + cfg.dec_layers
+    if served != (n_layers, 0):
+        raise AssertionError(f"{label}: a request launched (forward, backward) {served}")
+    if not (torch.isfinite(out["pred_logits"]).all() and torch.isfinite(out["pred_boxes"]).all()):
+        raise AssertionError(f"{label}: non-finite detections")
+    if tuple(out["pred_boxes"].shape) != (1, cfg.num_queries, 4):
+        raise AssertionError(f"{label}: pred_boxes shape {tuple(out['pred_boxes'].shape)}")
+    numbers = {"params_m": n_params / 1e6, "params": n_params, "build_s": build_s, "first_request_ms": request_ms,
+               "peak_memory_gib": peak / 2**30, "launches": served[0]}
+    log(f"{label} ({preset}, {overrides}): {n_params / 1e6:.2f} M params, built in "
+        f"{build_s:.1f} s; first request {request_ms:.1f} ms ({served[0]} msda_forward "
+        f"launches), peak {peak / 2**30:.2f} GiB; on {card_line}")
+    return numbers, cfg
+
+
+def phase_architectures(build_model, inference, optim, step, tokenizer_mod, transforms, pc,
+                        msda_forward, msda_backward, card_line, profile_dir=None):
+    """Phase 10: every architecture switch of the JAX model at full width
+    (BERT-base, d = 256, 6 + 6 layers, 900 queries, bf16, 800x1216), from
+    seeded weights in the reference's format under `build/phase10`:
+    10a GroundingDINO-B served; 10b ZiRa on Swin-B, remat against none;
+    10c ResNet-50 with learned positions, ZiRa and `finetune`; 10d Swin-L
+    served; 10e the ablation switches; 10f `train_odinw` on Swin-B. With
+    `profile_dir`, where a GroundingDINO-B request's time goes. Returns
+    {sub-phase: launches} and the numbers."""
+    from ziragroundingdino_torch.data import synthetic
+
+    root = pathlib.Path(__file__).resolve().parent / "build" / "phase10"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t0 = time.time()
+    model = build_model("groundingdino", device="cpu", seed=0, backbone=SWIN_B)
+    torch.save({"model": model.state_dict()}, root / "swinb.pth")
+    del model
+    synthetic.write_vocab(str(root / "vocab.txt"), tokenizer_mod.make_synthetic_vocab(REQUEST_WORDS))
+    synthetic.write_ppm(str(root / "image.ppm"), synthetic_u8())
+    (root / "swinb.json").write_text(json.dumps({"model": {"backbone": SWIN_B}}))
+    log(f"phase 10: Swin-B checkpoint ({(root / 'swinb.pth').stat().st_size / 2**30:.2f} GiB), "
+        f"vocab, image and overrides written in {time.time() - t0:.1f} s")
+    launches, numbers = {}, {}
+    args = (build_model, inference, optim, step, tokenizer_mod, transforms, pc, msda_forward,
+            msda_backward, card_line)
+    served = functools.partial(_swin_b_served, profile_dir=profile_dir)
+    for name, fn in (("10a", served), ("10b", _swin_b_remat), ("10c", _resnet_learned),
+                     ("10d", _swin_l_served), ("10e", _ablations), ("10f", _swin_b_driver)):
+        t = time.time()
+        launches[name], numbers[name] = fn(root, *args)
+        numbers[name]["phase_s"] = time.time() - t
+        torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    return launches, numbers
+
+
+def _swin_b_served(root, build_model, inference, optim, step, tokenizer_mod, transforms, pc,
+                   msda_forward, msda_backward, card_line, profile_dir=None):
+    """10a: the seeded vanilla Swin-B-384 checkpoint through
+    `load_model(..., backbone="swin_B_384_22k")` (no key missing, unexpected
+    or mismatched), SWIN_B_REQUESTS `predict` requests (12 launches each),
+    the demo with `--config-overrides` (its detections `predict`'s), and
+    one Predictor key (batch 1, text bucket 32): one capture of 12
+    launches, the replay bitwise equal to the eager forward."""
+    from ziragroundingdino_torch.scripts import inference_on_a_image
+    from ziragroundingdino_torch.utils.predictor import WARMUP_RUNS, Predictor
+
+    ckpt, vocab, image = (str(root / n) for n in ("swinb.pth", "vocab.txt", "image.ppm"))
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    lm = inference.load_model(ckpt, vocab, preset="groundingdino", dtype="bfloat16",
+                              backbone=SWIN_B)
+    load_ms = (time.perf_counter() - t) * 1e3
+    if lm.missing or lm.unexpected or lm.mismatched:
+        raise AssertionError(f"Swin-B load: missing {lm.missing[:5]}, unexpected "
+                             f"{lm.unexpected[:5]}, mismatched {lm.mismatched[:5]}")
+    cfg = lm.cfg
+    if cfg.swin.window_size != 12 or lm.model.backbone[0].out_channels != (256, 512, 1024):
+        raise AssertionError(f"not Swin-B 384: {cfg.swin}")
+    n_layers = cfg.enc_layers + cfg.dec_layers
+    _, (pixels, mask), _ = transforms.load_image(image)
+    msda_forward.launches = msda_backward.launches = 0
+    request_ms = []
+    for i in range(SWIN_B_REQUESTS):
+        caption = REQUEST_CAPTIONS[i % len(REQUEST_CAPTIONS)]
+        before = msda_forward.launches
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, out = _request_outputs(inference, lm, pixels, mask, caption)
+        torch.cuda.synchronize()
+        request_ms.append((time.perf_counter() - t) * 1e3)
+        if msda_forward.launches - before != n_layers:
+            raise AssertionError(f"Swin-B request launched msda_forward "
+                                 f"{msda_forward.launches - before} times")
+        if not (torch.isfinite(out["pred_logits"]).all()
+                and torch.isfinite(out["pred_boxes"]).all()):
+            raise AssertionError("Swin-B: non-finite detections")
+    served = msda_forward.launches
+    peak = torch.cuda.max_memory_allocated()
+    stream = (phase_profile(inference, (lm.model, lm, pixels, mask, REQUEST_CAPTIONS),
+                            profile_dir, card_line, tag="swin_b")
+              if profile_dir is not None else None)
+    want = inference.predict(lm, pixels, mask, REQUEST_CAPTIONS[0], box_threshold=0.0)
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        pred = inference_on_a_image.main([
+            "-c", "groundingdino", "-p", ckpt, "--vocab", vocab, "-i", image, "-t",
+            REQUEST_CAPTIONS[0], "-o", str(root / "demo"), "--box-threshold", "0.0",
+            "--config-overrides", str(root / "swinb.json")])
+    gaps = (float(np.abs(np.asarray(pred["boxes"], np.float32) - want[0]).max()),
+            float(np.abs(np.asarray(pred["scores"], np.float32) - want[1]).max()))
+    if gaps != (0.0, 0.0) or pred["phrases"] != want[2]:
+        raise AssertionError(f"Swin-B demo vs predict: boxes, scores off by {gaps}")
+
+    # one Predictor key: batch 1, PREDICTOR_CLASSES (text bucket 32)
+    predictor = Predictor(lm.model, lm.tokenizer)
+    counter = _CaptureCount(msda_forward)
+    counter.install()
+    msda_forward.launches = 0
+    ms = []
+    try:
+        for _ in range(SWIN_B_REQUESTS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            result = predictor([synthetic_u8()], [PREDICTOR_CLASSES], score_threshold=0.0)
+            ms.append((time.perf_counter() - t) * 1e3)
+    finally:
+        counter.restore()
+    key = list(predictor._compiled)[-1]
+    if (len(predictor._compiled), counter.launches, msda_forward.launches) != (
+            1, [n_layers], n_layers * (WARMUP_RUNS + 1)) or key[2] != 32:
+        raise AssertionError(f"Swin-B predictor: key {key}, captures {counter.launches}, "
+                             f"{msda_forward.launches} launches")
+    if not np.isfinite(result[0]["scores"]).all():
+        raise AssertionError("Swin-B predictor: non-finite scores")
+    replay = _replay_vs_eager(predictor, key, msda_forward)
+    if not replay["bitwise"]:
+        raise AssertionError(f"Swin-B predictor replay is not the eager forward: {replay}")
+    replay_ms = statistics.median(ms[1:])
+    numbers = {"load_model_ms": load_ms, "request_ms": request_ms,
+               "request_median_ms": statistics.median(request_ms[1:]),
+               "img_per_s": 1e3 / statistics.median(request_ms[1:]),
+               "first_request_ms": request_ms[0], "peak_memory_gib": peak / 2**30,
+               "request_launches": served, "predictor_key": [key[0], list(key[1]), key[2], key[3]],
+               "predictor_request_ms": ms, "predictor_replay_median_ms": replay_ms,
+               "predictor_img_per_s": 1e3 / replay_ms, "predictor_first_request_ms": ms[0],
+               "replay_vs_eager": replay, "stream_ms": stream, "card": card_line}
+    log(f"10a Swin-B served: load_model {load_ms:.1f} ms; requests ms "
+        f"{[round(x, 2) for x in request_ms]} (first includes warm-up), median "
+        f"{numbers['request_median_ms']:.2f} ({numbers['img_per_s']:.2f} img/s), peak "
+        f"{peak / 2**30:.2f} GiB, {served} msda_forward launches; demo = predict; predictor "
+        f"key {key}: ms {[round(x, 2) for x in ms]}, replay median {replay_ms:.2f} ms "
+        f"({1e3 / replay_ms:.2f} img/s), replay bitwise the eager forward; on {card_line}")
+    del predictor, lm, out
+    return served, numbers
+
+
+def _swin_b_remat(root, build_model, inference, optim, step, tokenizer_mod, transforms, pc,
+                  msda_forward, msda_backward, card_line):
+    """10b: the Swin-B checkpoint loaded non-strictly into the ZiRa preset
+    three times, remat off, off again and on (`use_checkpoint`,
+    `use_transformer_ckpt`), its branches seeded alike; the same first step
+    from the same generator seed with dropout on: losses bitwise equal,
+    every trainable gradient within REMAT_GRAD_TOL of its scale (the second
+    run without remat gives the atomics' floor beside remat's gap), 12
+    against 18 `msda_forward` launches and 12 `msda_backward` (6 binned)
+    each; the peak and the step time each way. Then phase 7c's steps and
+    merge on Swin-B with remat."""
+    ckpt, vocab = str(root / "swinb.pth"), str(root / "vocab.txt")
+    words = ["person", "dog", "cat", "car"]
+    tok = tokenizer_mod.WordPieceTokenizer(tokenizer_mod.make_synthetic_vocab(words))
+    pixels, mask = synthetic_image(transforms, pc)
+    runs = {}
+    for label, remat in (("no_remat", False), ("no_remat_again", False), ("remat", True)):
+        lm = inference.load_model(ckpt, vocab, preset="dualzerorepbranchgroundingdino",
+                                  dtype="bfloat16", backbone=SWIN_B,
+                                  **(REMAT if remat else {}))
+        model, cfg = lm.model, lm.cfg
+        zira_keys = sorted(k for k in model.state_dict() if "adapter" in k)
+        if sorted(lm.missing) != zira_keys or lm.unexpected or lm.mismatched:
+            raise AssertionError(f"Swin-B into ZiRa: missing {lm.missing[:5]}, unexpected "
+                                 f"{lm.unexpected[:5]}, mismatched {lm.mismatched[:5]}")
+        del lm
+        _seeded_rep_modules(model)
+        optim.set_trainable(model, optim.ZIRA_TRAINABLE_PATTERNS)
+        opt = optim.Optimizer(model, pc.OptimizerConfig(), pc.ScheduleConfig())
+        tb = tokenizer_mod.tokenize_captions(tok, [" . ".join(words) + " ."],
+                                             max_text_len=cfg.max_text_len,
+                                             max_categories=cfg.max_categories)
+        batch = train_batch(tb, pixels, mask, "cuda", n_labels=len(words))
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        msda_forward.launches = msda_backward.launches = msda_backward.binned_launches = 0
+        matched = matcher_counts()
+        t = time.perf_counter()
+        total, losses = step.compute_losses(model, batch, gen)
+        total.backward()
+        grads = {n: p.grad.detach().clone() for n, p in opt.params.items()}
+        opt.step()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t) * 1e3
+        check_matcher(f"10b {label}", matched, 1)
+        runs[label] = {
+            "losses": {k: v.detach() for k, v in losses.items()}, "grads": grads,
+            "launches": (msda_forward.launches, msda_backward.launches,
+                         msda_backward.binned_launches),
+            "step_ms": step_ms, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "step_peak_gib": (torch.cuda.max_memory_allocated() - base) / 2**30}
+        want = (_forward_launches(cfg), cfg.enc_layers + cfg.dec_layers, cfg.enc_layers)
+        if runs[label]["launches"] != want:
+            raise AssertionError(f"Swin-B step, {label}: msda launches "
+                                 f"{runs[label]['launches']}, not {want}")
+        del model, opt, total, losses, batch
+        torch.cuda.empty_cache()
+    off, on = runs["no_remat"], runs["remat"]
+    gaps = {}  # each pair of steps: the worst gradient gap and its tensor
+    for a, b in (("no_remat", "no_remat_again"), ("no_remat", "remat"),
+                 ("no_remat_again", "remat")):
+        unequal = [k for k in runs[a]["losses"]
+                   if not torch.equal(runs[a]["losses"][k], runs[b]["losses"][k])]
+        if unequal:
+            raise AssertionError(f"Swin-B {a} vs {b}: the losses {unequal} differ")
+        err = {n: float((runs[b]["grads"][n] - g).abs().max() / g.abs().max().clamp(min=1e-30))
+               for n, g in runs[a]["grads"].items()}
+        worst = max(err, key=err.get)
+        gaps[f"{a} vs {b}"] = (err[worst], worst)
+    log(f"10b ZiRa on Swin-B, one step remat off / off again / on: losses bitwise equal "
+        f"({off['losses']['total_loss'].item():.4f}); worst gradient gap of its scale "
+        + "; ".join(f"{k} {v[0]:.2e} ({v[1]})" for k, v in gaps.items())
+        + f"; msda launches {off['launches']} / {on['launches']}; step ms "
+        f"{off['step_ms']:.1f} / {runs['no_remat_again']['step_ms']:.1f} / "
+        f"{on['step_ms']:.1f}; peak {off['peak_gib']:.2f} / {on['peak_gib']:.2f} GiB "
+        f"({off['step_peak_gib']:.2f} / {on['step_peak_gib']:.2f} above the weights); on "
+        f"{card_line}")
+    for pair, (gap, name) in gaps.items():
+        if gap > REMAT_GRAD_TOL:
+            raise AssertionError(f"Swin-B {pair}: gradient of {name} off by {gap}")
+    launches, merged = _train_and_merge(
+        "swin_b_remat", "dualzerorepbranchgroundingdino", dict(REMAT, backbone=SWIN_B),
+        build_model, optim, step, tokenizer_mod, transforms, pc, msda_forward, msda_backward,
+        card_line)
+    numbers = {k: {"step_ms": r["step_ms"], "peak_memory_gib": r["peak_gib"],
+                   "step_peak_gib": r["step_peak_gib"], "launches": r["launches"]}
+               for k, r in runs.items()}
+    numbers.update(losses_bitwise_equal=True, worst_grad_rel_gap={k: v[0] for k, v in gaps.items()},
+                   steps_and_merge=merged, card=card_line)
+    return {"first_step": (off["launches"], on["launches"]), "steps": launches}, numbers
+
+
+def _resnet_learned(root, build_model, inference, optim, step, tokenizer_mod, transforms, pc,
+                    msda_forward, msda_backward, card_line):
+    """10c: `dualzerorepbranchgroundingdino` on ResNet-50 with learned
+    positions: one request, then phase 7c's steps and merge; then one
+    `finetune` step on the same backbone (its zero-init heads and
+    deformable kernels seeded) in which the frozen BN's four tensors and
+    the learned tables get a gradient that is not all zero and move, as
+    they do in JAX."""
+    overrides = {"backbone": "resnet50", "position_embedding": "learned"}
+    served, _ = _serve_once("10c resnet50 learned", "dualzerorepbranchgroundingdino", overrides,
+                            build_model, inference, tokenizer_mod, transforms, pc, msda_forward,
+                            msda_backward, card_line, seed_rep=True)
+    torch.cuda.empty_cache()
+    launches, trained = _train_and_merge(
+        "resnet50_learned", "dualzerorepbranchgroundingdino", overrides, build_model, optim,
+        step, tokenizer_mod, transforms, pc, msda_forward, msda_backward, card_line)
+    torch.cuda.empty_cache()
+
+    model = build_model("finetune", device="cuda", dtype="bfloat16", seed=0, **overrides)
+    cfg = model.cfg
+    _seeded_pet_modules(model)
+    _seeded_deformable(model)
+    optim.set_trainable(model, optim.trainable_patterns_for_cfg(cfg), freeze_all=cfg.freeze_all)
+    opt = optim.Optimizer(model, pc.OptimizerConfig(), pc.ScheduleConfig())
+    # the 53 frozen BNs' four tensors (the stem's, 3 a block, 4 downsamples)
+    # and the two learned tables
+    watched = [n for n in opt.params if n.startswith("backbone.1.") or (
+        n.startswith("backbone.0.body.") and "conv" not in n and "downsample.0" not in n)]
+    n_bn = sum(n.endswith(FROZEN_BN) for n in watched)
+    if (len(watched), n_bn) != (4 * 53 + 2, 2 * 53) or len(opt.params) != len(
+            list(model.parameters())):
+        raise AssertionError(f"finetune on ResNet trains {len(opt.params)} tensors, "
+                             f"{len(watched)} BN and table tensors")
+    start = {n: opt.params[n].detach().clone() for n in watched}
+    ungraded = record_gradients(opt)
+    words = ["person", "dog", "cat", "car"]
+    tok = tokenizer_mod.WordPieceTokenizer(tokenizer_mod.make_synthetic_vocab(words))
+    tb = tokenizer_mod.tokenize_captions(tok, [" . ".join(words) + " ."],
+                                         max_text_len=cfg.max_text_len,
+                                         max_categories=cfg.max_categories)
+    pixels, mask = synthetic_image(transforms, pc)
+    batch = train_batch(tb, pixels, mask, "cuda", n_labels=len(words))
+    msda_forward.launches = msda_backward.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    metrics = step.train_step(model, opt, batch, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    ft_ms = (time.perf_counter() - t) * 1e3
+    no_grad = set(ungraded())
+    still = [n for n in watched if torch.equal(opt.params[n].detach(), start[n])]
+    missed = [n for n in watched if n in no_grad]
+    log(f"10c finetune on ResNet-50 + learned positions: one step {ft_ms:.1f} ms, loss "
+        f"{metrics['total_loss'].item():.4f}, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {len(watched)} BN and table "
+        f"tensors watched, {len(missed)} without a gradient, {len(still)} unmoved; msda "
+        f"launches ({msda_forward.launches}, {msda_backward.launches}); on {card_line}")
+    if missed or still or not torch.isfinite(metrics["total_loss"]):
+        raise AssertionError(f"finetune on ResNet: no gradient {missed[:5]}, unmoved {still[:5]}")
+    numbers = {"request": served, "steps_and_merge": trained, "finetune_step_ms": ft_ms,
+               "finetune_watched_tensors": len(watched), "card": card_line}
+    return {"request": served["launches"], "steps": launches,
+            "finetune": (msda_forward.launches, msda_backward.launches)}, numbers
+
+
+def _swin_l_served(root, build_model, inference, optim, step, tokenizer_mod, transforms, pc,
+                   msda_forward, msda_backward, card_line):
+    """10d: the vanilla model on Swin-L 384 (window 12): one request."""
+    numbers, _ = _serve_once("10d Swin-L", "groundingdino", {"backbone": SWIN_L}, build_model,
+                             inference, tokenizer_mod, transforms, pc, msda_forward,
+                             msda_backward, card_line)
+    numbers["card"] = card_line
+    return numbers["launches"], numbers
+
+
+def _ablations(root, build_model, inference, optim, step, tokenizer_mod, transforms, pc,
+               msda_forward, msda_backward, card_line):
+    """10e: one request each with a switch of ABLATIONS off; the parameter
+    count drops by exactly the parameters that the switch removes (counted
+    on the model with the switch on, built on the meta device)."""
+    from ziragroundingdino_torch.models.groundingdino import GroundingDINO
+
+    launches, numbers = {}, {"card": card_line}
+    for switch, parts in ABLATIONS:
+        n, cfg = _serve_once(f"10e {switch}=False", "dualzerorepbranchgroundingdino",
+                             {switch: False}, build_model, inference, tokenizer_mod,
+                             transforms, pc, msda_forward, msda_backward, card_line,
+                             seed_rep=True)
+        with torch.device("meta"):
+            full = dict(GroundingDINO(cfg.replace(**{switch: True})).named_parameters())
+        fewer = sum(p.numel() for p in full.values()) - n["params"]
+        removed = sum(p.numel() for k, p in full.items() if any(s in k for s in parts))
+        if fewer != removed or (parts and not removed):
+            raise AssertionError(f"{switch}=False: {fewer} parameters fewer, not {removed}")
+        n["params_removed_m"] = removed / 1e6
+        launches[switch], numbers[switch] = n["launches"], n
+        torch.cuda.empty_cache()
+    return launches, numbers
+
+
+def _swin_b_driver(root, build_model, inference, optim, step, tokenizer_mod, transforms, pc,
+                   msda_forward, msda_backward, card_line):
+    """10f: `scripts/train_odinw.main --config-overrides` (Swin-B) from the
+    vanilla Swin-B checkpoint on phase 6's synthetic tasks, PET_ITERS steps
+    a task, remat on by default: 18 `msda_forward` launches a step and 12
+    an eval batch, 12 `msda_backward` a step; only ZiRa tensors change; a
+    finite report."""
+    from ziragroundingdino_torch.data import synthetic
+    from ziragroundingdino_torch.scripts import train_odinw
+
+    classes = [c for name in PET_TASKS for c in LIFECYCLE_TASKS[name][0]]
+    synthetic.write_vocab(str(root / "tasks_vocab.txt"),
+                          tokenizer_mod.make_synthetic_vocab(classes))
+    for i, name in enumerate(PET_TASKS):
+        cls, n_train, n_test = LIFECYCLE_TASKS[name]
+        synthetic.write_odinw_task(str(root / "data"), name, cls, n_train, n_test,
+                                   LIFECYCLE_ORIG, seed=100 + 10 * i)
+    out = root / "out"
+    args = ["--checkpoint", str(root / "swinb.pth"), "--vocab", str(root / "tasks_vocab.txt"),
+            "--datasets-root", str(root / "data"), "--tasks", ",".join(PET_TASKS),
+            "--output-dir", str(out), "--batch-size", str(PET_BATCH),
+            "--max-iter", str(PET_ITERS), "--checkpoint-period", str(PET_ITERS),
+            "--config-overrides", str(root / "swinb.json")]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    msda_forward.launches = msda_backward.launches = msda_backward.binned_launches = 0
+    matched = matcher_counts()
+    loaded, load_model = [], inference.load_model
+
+    def recording(*a, **kw):  # the config that train_odinw built
+        lm = load_model(*a, **kw)
+        loaded.append(lm.cfg)
+        return lm
+
+    inference.load_model = recording
+    t = time.perf_counter()
+    try:
+        report = train_odinw.main(args)
+    finally:
+        inference.load_model = load_model
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t
+    launches = (msda_forward.launches, msda_backward.launches, msda_backward.binned_launches)
+    check_matcher("phase 10f", matched, PET_ITERS * len(PET_TASKS))
+    peak = torch.cuda.max_memory_allocated()
+    steps = PET_ITERS * len(PET_TASKS)
+    batches = sum(-(-LIFECYCLE_TASKS[n][2] // PET_BATCH) for n in PET_TASKS)
+    cfg = loaded[0]
+    if (cfg.backbone, cfg.swin.window_size, cfg.use_checkpoint, cfg.use_transformer_ckpt) != (
+            SWIN_B, 12, True, True):
+        raise AssertionError(f"train_odinw built {cfg.backbone}, window {cfg.swin.window_size}, "
+                             f"remat {cfg.use_checkpoint, cfg.use_transformer_ckpt}")
+    n_layers = cfg.enc_layers + cfg.dec_layers
+    want = (n_layers * batches + _forward_launches(cfg) * steps, n_layers * steps,
+            cfg.enc_layers * steps)
+    log(f"10f train_odinw on Swin-B in {run_s:.1f} s ({steps} steps, {batches} eval batches): "
+        f"msda launches {launches}; report {report}; peak {peak / 2**30:.2f} GiB; on {card_line}")
+    if launches != want:
+        raise AssertionError(f"Swin-B driver: msda launches {launches}, not {want}")
+    keys = {f"AP/{n}" for n in PET_TASKS} | {"avg_AP"}
+    if set(report) != keys or not all(np.isfinite(v) for v in report.values()):
+        raise AssertionError(f"Swin-B driver report {report}")
+    before = torch.load(root / "swinb.pth", map_location="cpu", weights_only=True)["model"]
+    for name in PET_TASKS:
+        params = torch.load(out / name / "state_final.pt", map_location="cpu",
+                            weights_only=True)["params"]
+        changed = [k for k, v in params.items()
+                   if "adapter" not in k and not torch.equal(v, before[k])]
+        if changed or not any("adapter" in k for k in params):
+            raise AssertionError(f"Swin-B driver, task {name}: changed {changed[:5]}")
+        before = params
+    return launches, {"run_s": run_s, "peak_memory_gib": peak / 2**30, "report": report,
+                      "card": card_line}
+
+
 def _merged_ms(intervals) -> float:
     """Length of the union of (start, end) intervals in microseconds, in ms."""
     total, end = 0.0, float("-inf")
@@ -2229,14 +2764,15 @@ def profile_window(label, fn, n, trace_path: pathlib.Path, card_line):
     return summary
 
 
-def phase_profile(inference, request, out_dir: pathlib.Path, card_line):
+def phase_profile(inference, request, out_dir: pathlib.Path, card_line, tag=None):
     """Where a request's time goes (only with --profile DIR), after the main
-    path's checks. Two passes over the same captions:
+    path's checks (and phase 10a's, `tag` "swin_b"). Two passes over the
+    same captions:
       * CUDA events from forward hooks give the stream time of BERT, Swin,
         the encoder, the decoder and the whole forward (the rest of the
         forward is input projections, query selection and the heads);
       * `profile_window` over the requests: device busy time, idle share,
-        top kernels; its trace goes to DIR/trace.json.gz."""
+        top kernels; its trace goes to DIR/trace.json.gz (DIR/<tag>_trace...)."""
     model, lm, pixels, mask, captions = request
     spans = {"forward": model, "bert": model.bert, "swin": model.backbone[0],
              "encoder": model.transformer.encoder, "decoder": model.transformer.decoder}
@@ -2270,12 +2806,14 @@ def phase_profile(inference, request, out_dir: pathlib.Path, card_line):
     stream = {name: statistics.median(a.elapsed_time(b) for a, b in pairs)
               for name, pairs in marks.items()}
     stream["other"] = stream["forward"] - sum(v for k, v in stream.items() if k != "forward")
-    log(f"profile: request wall median {statistics.median(wall):.2f} ms; stream ms (median of "
-        f"{len(captions)}): " + ", ".join(f"{k} {v:.2f}" for k, v in stream.items())
-        + f"; on {card_line}")
+    log(f"profile{f' ({tag})' if tag else ''}: request wall median "
+        f"{statistics.median(wall):.2f} ms; stream ms (median of {len(captions)}): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in stream.items()) + f"; on {card_line}")
     caps = iter(captions * 2)
-    profile_window("request", lambda: inference.predict(lm, pixels, mask, next(caps)),
-                   len(captions), out_dir / "trace.json.gz", card_line)
+    profile_window(f"{tag} request" if tag else "request",
+                   lambda: inference.predict(lm, pixels, mask, next(caps)), len(captions),
+                   out_dir / (f"{tag}_trace.json.gz" if tag else "trace.json.gz"), card_line)
+    return stream
 
 
 def main() -> int:
@@ -2370,8 +2908,17 @@ def main() -> int:
     predictor_launches, predictor = phase_predictor(
         build_model, inference, tokenizer_mod, transforms, pc, msda_forward, card_line,
         args.profile)
+    torch.cuda.empty_cache()
 
-    # 10. result
+    # 10. every architecture switch: GroundingDINO-B, ResNet-50, Swin-L, the
+    # ablation switches, train_odinw on Swin-B
+    matched = matcher_counts()
+    arch_launches, arch = phase_architectures(build_model, inference, optim, step,
+                                              tokenizer_mod, transforms, pc, msda_forward,
+                                              msda_backward, card_line, args.profile)
+    phase_10_lsap = matcher_counts()[0] - matched[0]
+
+    # result
     enc, dec = rec["encoder"], rec["decoder"]
     benc = rec_bwd["encoder", "binned"]  # the path of the main path's encoder calls
     kernels = [{
@@ -2402,6 +2949,15 @@ def main() -> int:
         "predictor_launches": predictor_launches,
         "predictor_launches_are": "warm-up runs and one capture per key through the wrapper; "
                                   "each replay launches the captured 12 without it",
+        "phase_10_launches": {
+            "10a_requests": arch_launches["10a"],
+            "10b_first_step_no_remat_remat": [arch_launches["10b"]["first_step"][0][0],
+                                              arch_launches["10b"]["first_step"][1][0]],
+            "10b_steps": arch_launches["10b"]["steps"][0],
+            "10c_request": arch_launches["10c"]["request"],
+            "10c_steps": arch_launches["10c"]["steps"][0],
+            "10c_finetune": arch_launches["10c"]["finetune"][0], "10d": arch_launches["10d"],
+            "10e": arch_launches["10e"], "10f": arch_launches["10f"][0]},
         "decoder": {k: dec[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
                                         "max_abs_err", "l2_gather_mb")},
         "decoder_timed_at": "decoder call, bf16 value, B=1 Q=900 S=20197 H=8 D=32 L=P=4",
@@ -2430,6 +2986,11 @@ def main() -> int:
         "pet_train_binned_launches": {k: v[1][2] for k, v in pet_launches.items()},
         "pet_driver_launches": pet_driver_launches[1],
         "pet_driver_binned_launches": pet_driver_launches[2],
+        "phase_10_launches": {"10b_first_step_no_remat_remat": [
+            arch_launches["10b"]["first_step"][0][1:], arch_launches["10b"]["first_step"][1][1:]],
+            "10b_steps": arch_launches["10b"]["steps"][1:],
+            "10c_steps": arch_launches["10c"]["steps"][1:],
+            "10c_finetune": arch_launches["10c"]["finetune"][1], "10f": arch_launches["10f"][1:]},
         "device_ms": benc["device_ms"],
         "launch_ms": benc["launch_ms"],
         "by_path": {f"{name} {path}": {k: v for k, v in r.items() if k != "bound_by"}
@@ -2458,6 +3019,7 @@ def main() -> int:
         "family_train_launches": {k: v["lsap_launches"] for k, v in family.items()},
         "pet_train_launches": {k: v["lsap_launches"] for k, v in pet.items()},
         "phase_8b_launches": phase_8b_lsap,
+        "phase_10_launches": phase_10_lsap,
     }]
     log("train_step: " + json.dumps({
         "warm_median_ms": step_ms, "peak_memory_gib": peak / 2**30,
@@ -2475,6 +3037,11 @@ def main() -> int:
         "at": "dualzerorepbranchgroundingdino, bf16, 800x1216 bucket; (a) batch 1, (b) 3 "
               "images in batch 4, (c) batch 8, (d) text bucket 128; train_step_matcher: "
               "phase 5b's batch, warm steps in turns"}))
+    log("phase 10: " + json.dumps({
+        **arch, "card": card_line,
+        "at": "800x1216, bf16, BERT-base, d=256, 6+6 layers, 900 queries; 10a/10b/10f Swin-B "
+              "384 (window 12), 10c ResNet-50 + learned positions, 10d Swin-L 384, 10e Swin-T "
+              "with one ablation switch off"}))
     log(json.dumps({"kernels": kernels}))
     log(card_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

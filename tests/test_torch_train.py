@@ -219,10 +219,11 @@ def test_adamw_clip_and_lr_factors_match_optax():
     torch.testing.assert_close(updates[0], updates[1], rtol=OPT_TOL, atol=0)
 
 
-def _jax_step(seed):
-    """The tiny pair of weights `seed`, the batch, JAX's train-mode
-    assignments (JAX's matcher on JAX's outputs, in set_criterion's order)
-    and JAX's losses and gradients with its matcher pinned to them."""
+def _jax_step(seed, **overrides):
+    """The tiny pair of weights `seed` (its config `tiny_config(**overrides)`),
+    the batch, JAX's train-mode assignments (JAX's matcher on JAX's outputs,
+    in set_criterion's order) and JAX's losses and gradients with its
+    matcher pinned to them."""
     import jax
     import jax.numpy as jnp
     from tests.test_train_step import make_batch
@@ -231,7 +232,7 @@ def _jax_step(seed):
     from ziragroundingdino_tpu.train import matcher as jmatch
     from ziragroundingdino_tpu.train.step import class_logits_from_tokens, compute_losses
 
-    tp = TinyPair(seed=seed)
+    tp = TinyPair(seed=seed, **overrides)
     batch = make_batch()
     text = {k: batch[k] for k in pstep.TEXT_KEYS}
     out = jax.jit(lambda p: tp.jmodel.apply({"params": p}, batch["pixels"], batch["mask"], text,

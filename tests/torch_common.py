@@ -42,7 +42,8 @@ def port_config(jcfg) -> pc.GroundingDINOConfig:
 def random_params(shape_tree, seed: int = 0):
     """Seeded numpy parameters for a flax shape tree, scaled so that a
     forward stays in a sane range: kernels ~ N(0, 1/fan_in), norm scales
-    ~ 1 + N(0, 0.1), every other leaf ~ N(0, 0.1). Zero-initialized parts
+    ~ 1 + N(0, 0.1), frozen-BN variances (ResNet's `var`) ~ U(0.5, 1.5),
+    every other leaf ~ N(0, 0.1). Zero-initialized parts
     (box-head last layers, ZiRa freeze branches) become non-zero, so the
     comparison exercises them."""
     rng = np.random.RandomState(seed)
@@ -52,6 +53,8 @@ def random_params(shape_tree, seed: int = 0):
         z = rng.randn(*s.shape)
         if name == "scale":
             z = 1.0 + 0.1 * z
+        elif name == "var":
+            z = 0.5 + (z - z.min()) / max(np.ptp(z), 1e-6)
         elif len(s.shape) >= 2:
             z = z / np.sqrt(np.prod(s.shape[:-1]))
         else:

@@ -9,9 +9,14 @@ so one set of overrides configures both.
 `OptimizerConfig` and `ScheduleConfig` are the train step's
 (`train/optim.py`), `TrainConfig` the trainer's (`train/trainer.py`). `compute_dtype` names a `torch.dtype`; there is no
 `msda_impl`: the port has one MSDA and dispatches on the device. The
-presets are the JAX package's 12; of the switches that select an
-architecture the port lacks `backbone` (Swin-T only) and
-`position_embedding` (sine only).
+presets are the JAX package's 12, and every switch that the JAX model
+reads is here: the backbone (`SWIN_VARIANTS` or `resnet50`/`resnet101`),
+the position embedding, the ablation switches of the encoder and decoder
+and the remat switches. JAX's `GroundingDINOConfig` holds ten more fields
+that no code of that package reads (`query_dim`, `num_patterns`,
+`two_stage_type`, `dec_pred_bbox_embed_share`, `two_stage_bbox_embed_share`,
+`text_encoder_type`, `use_prompt_memory`, `use_prompt_memory_output`,
+`sub`) or that the port has no use for (`msda_impl`); they are left out.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ class SwinConfig:
     in_chans: int = 3
     drop_path_rate: float = 0.2
     out_indices: Tuple[int, ...] = (1, 2, 3)
+    use_checkpoint: bool = False  # recompute each block in the backward (`models/remat.py`)
 
     @property
     def num_layers(self) -> int:
@@ -47,6 +53,21 @@ class SwinConfig:
     @property
     def num_features(self) -> Tuple[int, ...]:
         return tuple(int(self.embed_dim * 2**i) for i in range(len(self.depths)))
+
+
+SWIN_VARIANTS: Dict[str, SwinConfig] = {
+    # `backbone/swin_transformer.py:771-787`
+    "swin_T_224_1k": SwinConfig(embed_dim=96, depths=(2, 2, 6, 2), num_heads=(3, 6, 12, 24)),
+    "swin_B_224_22k": SwinConfig(embed_dim=128, depths=(2, 2, 18, 2), num_heads=(4, 8, 16, 32)),
+    "swin_B_384_22k": SwinConfig(
+        embed_dim=128, depths=(2, 2, 18, 2), num_heads=(4, 8, 16, 32), window_size=12),
+    "swin_L_224_22k": SwinConfig(embed_dim=192, depths=(2, 2, 18, 2), num_heads=(6, 12, 24, 48)),
+    "swin_L_384_22k": SwinConfig(
+        embed_dim=192, depths=(2, 2, 18, 2), num_heads=(6, 12, 24, 48), window_size=12),
+}
+# the torchvision alternative (`backbone/backbone.py:33-71`): blocks per stage
+RESNET_DEPTHS: Dict[str, Tuple[int, ...]] = {"resnet50": (3, 4, 6, 3),
+                                             "resnet101": (3, 4, 23, 3)}
 
 
 @dataclass(frozen=True)
@@ -76,6 +97,10 @@ class GroundingDINOConfig:
     serving path, the train step and the lifecycle read are kept."""
 
     modelname: str = "dualzerorepbranchgroundingdino"
+    # a key of SWIN_VARIANTS or RESNET_DEPTHS
+    backbone: str = "swin_T_224_1k"
+    # "sine", or "learned" (also "v3"): a 50-row table per axis
+    position_embedding: str = "sine"
     pe_temperature_h: float = 20.0
     pe_temperature_w: float = 20.0
     return_interm_indices: Tuple[int, ...] = (1, 2, 3)
@@ -90,10 +115,28 @@ class GroundingDINOConfig:
     enc_n_points: int = 4
     dec_n_points: int = 4
     transformer_activation: str = "relu"
+    # the encoder-output class head is the decoder's (always so without
+    # `use_cls_linear`, whose head has parameters)
+    two_stage_class_embed_share: bool = False
+    # False: the decoder starts from the selected encoder memory, detached,
+    # instead of the learned `tgt_embed`
+    embed_init_tgt: bool = True
     max_text_len: int = 256
+    # the ablation switches: without them the encoder has no text layers,
+    # no fusion layers, the decoder no text cross-attention
+    use_text_enhancer: bool = True
+    use_fusion_layer: bool = True
+    use_text_cross_attention: bool = True
+    # remat (`models/remat.py`): the fusion layers, and the deformable
+    # encoder layers; Swin's blocks follow `SwinConfig.use_checkpoint`
+    use_checkpoint: bool = False
+    use_transformer_ckpt: bool = False
     text_dropout: float = 0.0
     fusion_dropout: float = 0.0
     fusion_droppath: float = 0.1
+    # False: BERT sees the plain [B, T] token mask and default positions
+    # instead of the per-phrase block mask and position ids
+    sub_sentence_present: bool = True
     # train
     aux_loss: bool = True
     freeze_all: bool = True  # False: every parameter trains (the finetune preset)
@@ -151,7 +194,7 @@ class GroundingDINOConfig:
 
     @property
     def swin(self) -> SwinConfig:
-        base = self.swin_config or SwinConfig()
+        base = self.swin_config or SWIN_VARIANTS[self.backbone]
         return dataclasses.replace(base, out_indices=self.return_interm_indices)
 
     @property

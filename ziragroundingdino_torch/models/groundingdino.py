@@ -31,9 +31,18 @@ token-level [B, Q, max_text_len]; per-category logits come from
 branches and adds what the criterion needs (`groundingdino.py:407-439` of
 the JAX package); a `generator` turns dropout on.
 
+The backbone is `cfg.backbone`: a Swin variant of `config.SWIN_VARIANTS`
+(Swin-T by default; GroundingDINO-B is `swin_B_384_22k`) or `resnet50` /
+`resnet101` (`models/resnet.py`); the input projections take its channels.
+Positions are sine, or with `position_embedding="learned"` (or "v3") the
+learned tables of `backbone.1`. Without `sub_sentence_present` BERT sees
+the [B, T] token mask and default positions instead of the per-phrase
+block mask and position ids.
+
 Module and parameter names follow the reference checkpoint, so its
 `state_dict` keys are this module's keys: `bert.*`, `feat_map`, the
-language branch, `backbone.0.*` (Swin), `input_proj.{l}.{0,1}`,
+language branch, `backbone.0.*` (Swin, or `backbone.0.body.*` for
+ResNet), `backbone.1.*` (learned positions), `input_proj.{l}.{0,1}`,
 `input_proj_conv_adapter.{l}`, `transformer.*`, `bbox_embed.{i}` (one MLP
 shared by every decoder layer, also aliased as `transformer.decoder.
 bbox_embed`) and `class_embed.{i}` (one head, parameter-free unless
@@ -47,13 +56,17 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from ziragroundingdino_torch.config import GroundingDINOConfig
+from ziragroundingdino_torch.config import RESNET_DEPTHS, SWIN_VARIANTS, GroundingDINOConfig
 from ziragroundingdino_torch.device import device_constant
 from ziragroundingdino_torch.models.adapters import MoeAdapter, cet_adapter
 from ziragroundingdino_torch.models.bert import BertEncoder
 from ziragroundingdino_torch.models.heads import ContrastiveEmbed
 from ziragroundingdino_torch.models.layers import MLP, Linear
-from ziragroundingdino_torch.models.position_encoding import position_embedding_sine_hw
+from ziragroundingdino_torch.models.position_encoding import (
+    PositionEmbeddingLearned,
+    position_embedding_sine_hw,
+)
+from ziragroundingdino_torch.models.resnet import ResNetBackbone
 from ziragroundingdino_torch.models.swin import SwinTransformer, interpolate_mask_nearest
 from ziragroundingdino_torch.models.transformer import Transformer
 from ziragroundingdino_torch.models.zira import (
@@ -79,6 +92,19 @@ MODELNAMES = ("groundingdino", "dtgroundingdino", "catgroundingdino") + ZIRA_MOD
 # (`groundingdino_repconvbn.py:613-614`, `multilayer_branch.py:575-576`);
 # the others add before its GroupNorm (`dual_zero_rep_branch.py:487-529`)
 POST_NORM_ADAPTER = ("repconvbngroundingdino", "dualzerorepmultilayerbranchgroundingdino")
+# `position_embedding` values: the reference's names and their aliases
+SINE_POSITIONS, LEARNED_POSITIONS = ("sine", "v2"), ("learned", "v3")
+
+
+def _backbone(cfg: GroundingDINOConfig, cd) -> nn.Module:
+    """`backbone.0`: the ResNet or Swin variant that `cfg.backbone` names
+    (`groundingdino.py:258-268` of the JAX package)."""
+    if cfg.backbone in RESNET_DEPTHS:
+        return ResNetBackbone(RESNET_DEPTHS[cfg.backbone], cfg.return_interm_indices, cd)
+    if cfg.backbone in SWIN_VARIANTS or cfg.swin_config is not None:
+        return SwinTransformer(cfg.swin, cd)
+    raise ValueError(f"unknown backbone {cfg.backbone!r}: not one of "
+                     f"{sorted(SWIN_VARIANTS) + sorted(RESNET_DEPTHS)}")
 
 
 def _language_adapter(cfg: GroundingDINOConfig, cd) -> Tuple[Optional[str], Optional[nn.Module]]:
@@ -143,16 +169,20 @@ class InputProj(nn.Sequential):
 
 def encode_text(bert: BertEncoder, feat_map: Linear, lang_adapter: Optional[nn.Module],
                 text: Dict[str, torch.Tensor], train: bool = False,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None, sub_sentence_present: bool = True
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The text path, BERT -> feat_map + the language branch where the
     model has one: (encoded_text [B, T, E], the branch's f32 loss, 0
     without a branch). A ZiRa branch runs its own branch and gives its ZIL
     (a mean over valid tokens, `zira.py:35-51` of the JAX package) in train
     mode only; the CET adapter runs alike in both modes and gives its
-    (self-KD) loss."""
-    bert_out = bert(text["input_ids"], text["text_self_attention_masks"],
-                    position_ids=text["position_ids"], generator=generator)
+    (self-KD) loss. BERT attends within each phrase at its position ids,
+    or without `sub_sentence_present` over every valid token at its place."""
+    if sub_sentence_present:
+        bert_out = bert(text["input_ids"], text["text_self_attention_masks"],
+                        position_ids=text["position_ids"], generator=generator)
+    else:
+        bert_out = bert(text["input_ids"], text["text_token_mask"], generator=generator)
     encoded = feat_map(bert_out)
     if lang_adapter is None:
         return encoded, torch.zeros((), dtype=torch.float32, device=encoded.device)
@@ -172,6 +202,7 @@ class TextEncoderOnly(nn.Module):
         super().__init__()
         self.bert = model.bert
         self.feat_map = model.feat_map
+        self.sub_sentence_present = model.cfg.sub_sentence_present
         self.lang_adapter_name = model.lang_adapter_name
         if self.lang_adapter_name is not None:
             self.add_module(self.lang_adapter_name, model.lang_adapter)
@@ -184,7 +215,8 @@ class TextEncoderOnly(nn.Module):
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(encoded_text [B, T, E], the language branch's ZIL: 0 unless train
         and the model has one)."""
-        return encode_text(self.bert, self.feat_map, self.lang_adapter, text, train)
+        return encode_text(self.bert, self.feat_map, self.lang_adapter, text, train,
+                           sub_sentence_present=self.sub_sentence_present)
 
 
 class GroundingDINO(nn.Module):
@@ -192,11 +224,13 @@ class GroundingDINO(nn.Module):
         super().__init__()
         if cfg.modelname not in MODELNAMES:
             raise ValueError(f"unknown modelname {cfg.modelname!r}: not one of {MODELNAMES}")
+        if cfg.position_embedding not in SINE_POSITIONS + LEARNED_POSITIONS:
+            raise ValueError(f"unknown position_embedding {cfg.position_embedding!r}: not one "
+                             f"of {SINE_POSITIONS + LEARNED_POSITIONS}")
         self.cfg = cfg
         cd = cfg.torch_dtype
         e = cfg.hidden_dim
         bert = cfg.bert
-        swin = cfg.swin
         is_zira = cfg.modelname in ZIRA_MODELNAMES
 
         self.bert = BertEncoder(bert, cd)
@@ -204,10 +238,13 @@ class GroundingDINO(nn.Module):
         self.lang_adapter_name, lang_adapter = _language_adapter(cfg, cd)
         if lang_adapter is not None:
             self.add_module(self.lang_adapter_name, lang_adapter)
-        self.backbone = nn.ModuleList([SwinTransformer(swin, cd)])
+        body = _backbone(cfg, cd)
+        self.learned_positions = cfg.position_embedding in LEARNED_POSITIONS
+        self.backbone = nn.ModuleList(
+            [body, PositionEmbeddingLearned(e // 2)] if self.learned_positions else [body])
 
-        n_backbone = len(swin.out_indices)
-        chans = [swin.num_features[i] for i in swin.out_indices]
+        chans = body.out_channels
+        n_backbone = len(chans)
         projs, adapters = [], []
         for lvl in range(cfg.num_feature_levels):
             if lvl < n_backbone:
@@ -270,7 +307,7 @@ class GroundingDINO(nn.Module):
 
         # ---- text path
         encoded_text, loss_linear = encode_text(self.bert, self.feat_map, self.lang_adapter,
-                                                text, train, generator)
+                                                text, train, generator, cfg.sub_sentence_present)
         zero = torch.zeros((), dtype=torch.float32, device=pixels.device)
         if prompt_replace_values is not None and prompt_replace_mask is not None:
             # prompt-memory injection: learned classes' token features
@@ -310,10 +347,13 @@ class GroundingDINO(nn.Module):
                 m_lvl = interpolate_mask_nearest(mask, src.shape[1], src.shape[2])
             srcs.append(src)
             masks_lvl.append(m_lvl)
-            poss.append(position_embedding_sine_hw(
-                m_lvl, num_pos_feats=cfg.hidden_dim // 2,
-                temperature_h=cfg.pe_temperature_h, temperature_w=cfg.pe_temperature_w,
-            ).to(cd))
+            if self.learned_positions:
+                poss.append(self.backbone[1](m_lvl).to(cd))
+            else:
+                poss.append(position_embedding_sine_hw(
+                    m_lvl, num_pos_feats=cfg.hidden_dim // 2,
+                    temperature_h=cfg.pe_temperature_h, temperature_w=cfg.pe_temperature_w,
+                ).to(cd))
 
         # CAT's conditional prompt (`groundingdino_conditional_adapter_tuning.py:
         # 366-378`): the deepest level pooled, padding included, through the

@@ -4,7 +4,9 @@ attention with relative position bias, patch merging between stages and
 per-stage output LayerNorms on `out_indices`. NHWC throughout. Stochastic
 depth (rates `linspace(0, drop_path_rate)` over the blocks, `swin.py:276` of
 the JAX package) draws from the generator given to `forward`, and is off
-without one.
+without one. Every variant of `config.SWIN_VARIANTS` (window 7 or 12) runs
+through the same code: each block pads its input to the window, and
+`use_checkpoint` recomputes each block in the backward (`models/remat.py`).
 
 Module names follow the reference checkpoint (`backbone.0.layers.1.blocks.0.
 attn.qkv.weight`). The relative-position index and the shift mask are static
@@ -25,6 +27,7 @@ from torch import nn
 from ziragroundingdino_torch.config import SwinConfig
 from ziragroundingdino_torch.device import DeviceTables
 from ziragroundingdino_torch.models.layers import LayerNorm, Linear, drop_path
+from ziragroundingdino_torch.models.remat import checkpoint
 
 
 @functools.lru_cache(maxsize=None)
@@ -256,6 +259,11 @@ class SwinTransformer(nn.Module):
         for s in cfg.out_indices:
             self.add_module(f"norm{s}", LayerNorm(cfg.num_features[s]))
 
+    @property
+    def out_channels(self) -> Tuple[int, ...]:
+        """Channels of each output level."""
+        return tuple(self.cfg.num_features[i] for i in self.cfg.out_indices)
+
     def forward(self, pixels: torch.Tensor, mask: torch.Tensor,
                 generator: Optional[torch.Generator] = None
                 ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
@@ -266,7 +274,10 @@ class SwinTransformer(nn.Module):
         outs = []
         for stage, layer in enumerate(self.layers):
             for blk in layer.blocks:
-                x = blk(x, generator)
+                if self.cfg.use_checkpoint:
+                    x = checkpoint(blk, x, generator, generator=generator)
+                else:
+                    x = blk(x, generator)
             if stage in self.cfg.out_indices:
                 y = getattr(self, f"norm{stage}")(x)
                 lvl_mask = interpolate_mask_nearest(mask, x.shape[1], x.shape[2])

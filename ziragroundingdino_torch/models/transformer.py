@@ -8,6 +8,14 @@ in-layer `adapters.Adapter`; each layer returns its adapter's f32 loss (0
 without an adapter), and the stacks and `Transformer` sum them as the JAX
 package does.
 
+The JAX model's switches: without `use_text_enhancer` the encoder has no
+text layers, without `use_fusion_layer` no fusion layers, without
+`use_text_cross_attention` the decoder layers have no text cross-attention
+(a switched-off part builds no parameters); without `embed_init_tgt` the
+decoder starts from the selected encoder memory, detached.
+`use_transformer_ckpt` recomputes each deformable encoder layer in the
+backward and `use_checkpoint` each fusion layer (`models/remat.py`).
+
 Batch-first; masks True = valid; softmaxes in f32; the decoder FFN in f32 as
 in the reference's autocast-disabled region (`:1004`). MSDA goes straight to
 `ops.msda.ms_deform_attn`, which runs the CUDA kernels on the card. Dropout
@@ -37,6 +45,7 @@ from ziragroundingdino_torch.models.layers import (
     gen_sineembed_for_position,
     get_sine_pos_embed,
 )
+from ziragroundingdino_torch.models.remat import checkpoint
 from ziragroundingdino_torch.ops.box_ops import inverse_sigmoid
 from ziragroundingdino_torch.ops.msda import ms_deform_attn
 
@@ -242,32 +251,41 @@ def select_topk(scores: torch.Tensor, k: int) -> torch.Tensor:
 
 class FeatureEnhancer(nn.Module):
     """The encoder stack: per layer fusion -> text layer -> deformable layer
-    (`transformer_for_adapter.py:563-661`). Returns (image memory, text
-    memory, the layers' summed f32 adapter loss)."""
+    (`transformer_for_adapter.py:563-661`), the first two where the config
+    has them. Returns (image memory, text memory, the layers' summed f32
+    adapter loss)."""
 
     def __init__(self, cfg: GroundingDINOConfig, compute_dtype: Optional[torch.dtype]):
         super().__init__()
         self.cfg = cfg
         n = cfg.enc_layers
         self.layers = nn.ModuleList(DeformableEncoderLayer(cfg, compute_dtype) for _ in range(n))
-        self.text_layers = nn.ModuleList(TextEnhancerLayer(cfg, compute_dtype) for _ in range(n))
+        self.text_layers = (nn.ModuleList(TextEnhancerLayer(cfg, compute_dtype) for _ in range(n))
+                            if cfg.use_text_enhancer else None)
         self.fusion_layers = nn.ModuleList(
             BiAttentionBlock(cfg.hidden_dim, cfg.hidden_dim, cfg.dim_feedforward // 2,
                              cfg.nheads // 2, compute_dtype=compute_dtype,
                              dropout=cfg.fusion_dropout, drop_path=cfg.fusion_droppath)
-            for _ in range(n))
+            for _ in range(n)) if cfg.use_fusion_layer else None
 
     def forward(self, src, pos, spatial_shapes, valid_ratios, key_padding_mask, text,
                 text_token_mask, text_self_attention_masks, position_ids, generator=None):
+        cfg = self.cfg
         reference_points = encoder_reference_points(spatial_shapes, valid_ratios)
-        pos_text = get_sine_pos_embed(position_ids[..., None].float(),
-                                      num_pos_feats=self.cfg.hidden_dim,
-                                      exchange_xy=False).to(src.dtype)
+        if self.text_layers is not None:
+            pos_text = get_sine_pos_embed(position_ids[..., None].float(),
+                                          num_pos_feats=cfg.hidden_dim,
+                                          exchange_xy=False).to(src.dtype)
         adapter_loss = zero_loss(src)
-        for fusion, text_layer, layer in zip(self.fusion_layers, self.text_layers, self.layers):
-            src, text = fusion(src, text, key_padding_mask, text_token_mask, generator)
-            text = text_layer(text, text_self_attention_masks, pos_text, generator)
-            src, loss = layer(src, pos, reference_points, spatial_shapes, key_padding_mask)
+        for i, layer in enumerate(self.layers):
+            if self.fusion_layers is not None:
+                args = (src, text, key_padding_mask, text_token_mask, generator)
+                src, text = (checkpoint(self.fusion_layers[i], *args, generator=generator)
+                             if cfg.use_checkpoint else self.fusion_layers[i](*args))
+            if self.text_layers is not None:
+                text = self.text_layers[i](text, text_self_attention_masks, pos_text, generator)
+            args = (src, pos, reference_points, spatial_shapes, key_padding_mask)
+            src, loss = checkpoint(layer, *args) if cfg.use_transformer_ckpt else layer(*args)
             adapter_loss = adapter_loss + loss
         return src, text, adapter_loss
 
@@ -284,8 +302,11 @@ class DeformableDecoderLayer(nn.Module):
         self.compute_dtype = compute_dtype
         self.self_attn = MultiHeadAttention(e, cfg.nheads, compute_dtype, cfg.dropout)
         self.norm2 = LayerNorm(e)
-        self.ca_text = MultiHeadAttention(e, cfg.nheads, compute_dtype, cfg.dropout)
-        self.catext_norm = LayerNorm(e)
+        if cfg.use_text_cross_attention:
+            self.ca_text = MultiHeadAttention(e, cfg.nheads, compute_dtype, cfg.dropout)
+            self.catext_norm = LayerNorm(e)
+        else:
+            self.ca_text = self.catext_norm = None
         self.cross_attn = MSDeformAttn(e, cfg.nheads, cfg.num_feature_levels, cfg.dec_n_points,
                                        compute_dtype)
         self.norm1 = LayerNorm(e)
@@ -302,9 +323,10 @@ class DeformableDecoderLayer(nn.Module):
         q = tgt + query_pos
         attn = self.self_attn(q, q, tgt, attn_mask=self_attn_mask, generator=generator)
         tgt = self.norm2(tgt + attn).to(attn.dtype)
-        attn = self.ca_text(tgt + query_pos, text, text, key_padding_mask=text_token_mask,
-                            generator=generator)
-        tgt = self.catext_norm(tgt + attn).to(attn.dtype)
+        if self.ca_text is not None:
+            attn = self.ca_text(tgt + query_pos, text, text, key_padding_mask=text_token_mask,
+                                generator=generator)
+            tgt = self.catext_norm(tgt + attn).to(attn.dtype)
         attn = self.cross_attn(tgt + query_pos, memory, reference_points_input, spatial_shapes,
                                memory_mask)
         tgt = self.norm1(tgt + attn).to(attn.dtype)
@@ -363,10 +385,11 @@ class CrossModalityDecoder(nn.Module):
 
 class Transformer(nn.Module):
     """Encoder-decoder with two-stage language-guided query selection
-    (`transformer_for_adapter.py:228-421`). Under `use_cls_linear` the
-    two-stage class head is its own `enc_out_class_embed` with its own
-    `cls_linear` (`groundingdino.py:225-231`, two_stage_class_embed_share
-    False); else the model's shared head serves it."""
+    (`transformer_for_adapter.py:228-421`). Under `use_cls_linear` and
+    without `two_stage_class_embed_share` the two-stage class head is its
+    own `enc_out_class_embed` with its own `cls_linear`
+    (`groundingdino.py:380-388` of the JAX package); else the model's
+    shared head serves it."""
 
     def __init__(self, cfg: GroundingDINOConfig, compute_dtype: Optional[torch.dtype]):
         super().__init__()
@@ -376,14 +399,14 @@ class Transformer(nn.Module):
         self.level_embed = nn.Parameter(torch.empty(cfg.num_feature_levels, e))
         self.encoder = FeatureEnhancer(cfg, compute_dtype)
         self.decoder = CrossModalityDecoder(cfg, compute_dtype)
-        self.tgt_embed = Embedding(cfg.num_queries, e, std=1.0)
+        self.tgt_embed = Embedding(cfg.num_queries, e, std=1.0) if cfg.embed_init_tgt else None
         self.enc_output = Linear(e, e, compute_dtype=compute_dtype)
         self.enc_output_norm = LayerNorm(e)
         self.enc_out_bbox_embed = MLP(e, e, 4, 3, zero_init_last=True,
                                       compute_dtype=torch.float32)
         self.enc_out_class_embed = (
-            ContrastiveEmbed(cfg.max_text_len, True, e, compute_dtype) if cfg.use_cls_linear
-            else None)
+            ContrastiveEmbed(cfg.max_text_len, True, e, compute_dtype)
+            if cfg.use_cls_linear and not cfg.two_stage_class_embed_share else None)
 
     def init_weights(self, gen: torch.Generator) -> None:
         with torch.no_grad():
@@ -431,7 +454,13 @@ class Transformer(nn.Module):
         # package); only the encoder-output heads (`hs_enc`, `ref_enc`) carry
         # the two-stage losses back into the encoder
         refpoint_undetached = torch.gather(enc_coords, 1, topk_idx[..., None].expand(-1, -1, 4))
-        tgt = self.tgt_embed.weight[None].expand(b, -1, -1).to(cd)
+        e = output_memory.shape[-1]
+        selected = (torch.gather(output_memory, 1, topk_idx[..., None].expand(-1, -1, e))
+                    if train or self.tgt_embed is None else None)
+        if self.tgt_embed is not None:
+            tgt = self.tgt_embed.weight[None].expand(b, -1, -1).to(cd)
+        else:  # the selected encoder outputs, detached (`transformer.py:563-569` there)
+            tgt = selected.detach()
         intermediate, ref_points, dec_loss = self.decoder(
             tgt, refpoint_undetached.detach(), memory, mask_flat, spatial_shapes, valid_ratios,
             text_dict["encoded_text"], text_dict["text_token_mask"], generator)
@@ -445,7 +474,6 @@ class Transformer(nn.Module):
         if train:
             # two-stage heads' inputs: the selected encoder outputs [B, Q, E]
             # and their boxes [B, Q, 4], sigmoided
-            e = output_memory.shape[-1]
-            out["hs_enc"] = torch.gather(output_memory, 1, topk_idx[..., None].expand(-1, -1, e))
+            out["hs_enc"] = selected
             out["ref_enc"] = torch.sigmoid(refpoint_undetached)
         return out

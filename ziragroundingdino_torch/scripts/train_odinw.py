@@ -9,11 +9,17 @@ in `<output-dir>/result.json`. The port of the JAX package's
     python -m ziragroundingdino_torch.scripts.train_odinw \\
         --checkpoint groundingdino_swint_ogc.pth --vocab vocab.txt \\
         --datasets-root datasets/odinw --suite odinw13 [--shot full] \\
-        [--coco-json ... --coco-root ...] [--replay-iters N] [--fast-dev-run]
+        [--coco-json ... --coco-root ...] [--replay-iters N] [--fast-dev-run] \\
+        [--no-remat] [--config-overrides swinb.json]
 
-It runs on the CUDA card unless `--device cpu` is given. A second run on
-the same --output-dir restores each finished task from its `state_final.pt`
-and resumes a cut task from its newest checkpoint.
+(`swinb.json` holding `{"model": {"backbone": "swin_B_384_22k"}}` trains
+GroundingDINO-B.) It runs on the CUDA card unless `--device cpu` is given.
+As the JAX driver, it trains with remat on (`use_checkpoint` and
+`use_transformer_ckpt`: the fusion and deformable encoder layers are
+recomputed in the backward, the same gradients for less memory) unless
+`--no-remat` is given or the overrides set them. A second run on the same
+--output-dir restores each finished task from its `state_final.pt` and
+resumes a cut task from its newest checkpoint.
 """
 
 from __future__ import annotations
@@ -27,8 +33,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-LEFT_OUT = ("Not ported yet (multi-GPU training): --mesh (data/tensor/sequence "
-            "parallel) and --no-remat (the port keeps no encoder remat).")
+LEFT_OUT = "Not ported yet (multi-GPU training): --mesh (data/tensor/sequence parallel)."
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -70,6 +75,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     help="comma-separated subset of the suite's task names")
     ap.add_argument("--config-overrides", default=None,
                     help="json {'model': {...}, 'data': {...}} over the preset")
+    ap.add_argument("--no-remat", action="store_true",
+                    help="keep the encoder's activations instead of recomputing them in the "
+                         "backward: faster steps, more memory")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' to run on the CPU)")
     return ap.parse_args(argv)
@@ -137,6 +145,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
     model_ov, data_ov = {}, {}
     if args.config_overrides:
         model_ov, data_ov = load_config_overrides(args.config_overrides)
+    remat = not args.no_remat
+    model_ov = {"use_checkpoint": remat, "use_transformer_ckpt": remat, **model_ov}
     lm = load_model(args.checkpoint, args.vocab, preset=args.preset, device=args.device,
                     **model_ov)
     model, tokenizer, cfg = lm.model, lm.tokenizer, lm.cfg

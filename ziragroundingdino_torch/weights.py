@@ -10,6 +10,10 @@ becomes a pattern and the torch pattern a template. Layouts:
   * Linear kernel [in, out]         -> weight [out, in]      (transpose)
   * Conv kernel HWIO                -> weight OIHW
   * LayerNorm/GroupNorm scale/bias  -> weight/bias
+  * ResNet FrozenBatchNorm scale / bias / mean / var
+                                    -> weight / bias / running_mean / running_var
+  * learned positions pos_row_embed / pos_col_embed
+                                    -> backbone.1.row_embed / col_embed.weight
   * in_proj_kernel [E, 3E]          -> in_proj_weight [3E, E]
   * ZiRa branch_*/freeze_*          -> weight, bias / freeze_linear|freeze_conv.*
   * RepZeroLoRA down/up_kernel      -> down.weight / up.weight
@@ -83,6 +87,33 @@ _ln_rules(r"backbone\.0\.layers\.(\d+)\.downsample\.norm", r"backbone/layers_\1_
 _rule(r"backbone\.0\.layers\.(\d+)\.downsample\.reduction\.weight$",
       r"backbone/layers_\1_downsample/reduction/kernel", _LIN)
 _ln_rules(r"backbone\.0\.norm(\d+)", r"backbone/norm\1")
+
+# ---- backbone (resnet; torchvision's names under the reference's
+# IntermediateLayerGetter, `backbone.0.body`). The JAX package's own
+# reference-checkpoint table has no ResNet rules: these are the port's.
+
+
+def _frozen_bn_rules(src: str, dst: str) -> None:
+    for t, j in (("weight", "scale"), ("bias", "bias"), ("running_mean", "mean"),
+                 ("running_var", "var")):
+        _rule(src + rf"\.{t}$", f"{dst}/{j}")
+
+
+_rule(r"backbone\.0\.body\.conv1\.weight$", "backbone/conv1/kernel", _CONV)
+_frozen_bn_rules(r"backbone\.0\.body\.bn1", "backbone/bn1")
+for _i in (1, 2, 3):
+    _rule(rf"backbone\.0\.body\.layer(\d+)\.(\d+)\.conv{_i}\.weight$",
+          rf"backbone/layer\1_\2/conv{_i}/kernel", _CONV)
+    _frozen_bn_rules(rf"backbone\.0\.body\.layer(\d+)\.(\d+)\.bn{_i}",
+                     rf"backbone/layer\1_\2/bn{_i}")
+_rule(r"backbone\.0\.body\.layer(\d+)\.(\d+)\.downsample\.0\.weight$",
+      r"backbone/layer\1_\2/downsample_conv/kernel", _CONV)
+_frozen_bn_rules(r"backbone\.0\.body\.layer(\d+)\.(\d+)\.downsample\.1",
+                 r"backbone/layer\1_\2/downsample_bn")
+
+# ---- learned position tables (`torch_convert.py:120-123` of the JAX package)
+_rule(r"backbone\.1\.row_embed\.weight$", "pos_row_embed")
+_rule(r"backbone\.1\.col_embed\.weight$", "pos_col_embed")
 
 # ---- bert
 _rule(r"bert\.embeddings\.word_embeddings\.weight$", "bert/word_embeddings")
