@@ -152,9 +152,38 @@ Phases, in order (any failure raises, and the script exits non-zero):
        Swin-B checkpoint on phase 6's tasks, 2 steps each, remat on by
        default (the config it built checked), merge and eval: only ZiRa
        tensors change; a `phase 10: {...}` line;
+  11. data parallelism (`parallel/`, `train_odinw` / `eval_coco --mesh`), the
+     ZiRa preset at full width from phase 6's seeded checkpoint and tasks
+     under `build/phase11` (removed after); the ranks are processes of
+     `torch.distributed.run` (this script with --phase11-worker), so this
+     process joins no group, and the kernels are built before they start:
+     11a. `train_odinw --mesh 1` on one rank over NCCL, 2 tasks x 2 steps at
+       batch 2 with remat, merge and sharded eval, against the plain run
+       here on the same seed: the first step's losses bitwise equal, every
+       trainable gradient within REMAT_GRAD_TOL of its scale, the eval's
+       images in the same order with as many detections each; 18
+       `msda_forward`, 12 `msda_backward` and 1 `lsap` launches a step both
+       ways; a step's NCCL all-reduces under torch.profiler (at least one
+       per DDP bucket), the run's steps and 12 warm steps each way with
+       and without DDP in turns, peak memory;
+     11b. two ranks sharing the card over gloo (NCCL refuses two ranks on
+       one device), in f32 (DP_DTYPE: bf16 ties in the random weights' query
+       selection make an image's decoder queries depend on the batch size):
+       one DDP step at global batch 2 (an image a rank) of the
+       ZiRa and repconvbn presets against this process at batch 2, each
+       run matching its own outputs: losses within DP_TOL relative,
+       every trainable gradient within DP_TOL of its scale, the repconvbn
+       branches' batch statistics (global: a synchronised BN) within
+       DP_TOL; then `eval_coco --mesh 2` on task A's 3 test images (the last
+       global batch padded) against `eval_coco`: the same images in order,
+       the same detections, the same AP;
+     11c. `batch_size_scale=2` over two micro-steps of one image against
+       one step at batch 2: AdamW and the schedule step once, the EMA
+       twice, the trainable tensors within DP_TOL of their scale, one
+       `lsap` launch a call; a `phase 11: {...}` line.
   Phases 5b, 6, 7c, 8 and 10 check one `lsap` launch and no host matcher
   call (no copy of the costs to the host) per train step.
-  11. result: a `kernels` JSON line, the nvidia-smi line, and last
+  12. result: a `kernels` JSON line, the nvidia-smi line, and last
      `{"ok": true, "device": {...}}`.
 
 It needs a CUDA card and the repository's `ziragroundingdino_torch` package
@@ -706,8 +735,40 @@ def phase_lsap(lsap_mod, matcher):
             log(f"lsap {name} B={b}: lsap_plain on the card {plain_ms:.2f} ms")
             record = dict(max_abs_err=0.0, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
                           plain_cpu_ms=plain_cpu_ms, scipy_host_ms=scipy_ms,
-                          bound_ms=bound_ms, bound_by=bound_by)
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          **lsap_latency_bound(lsap_mod, cost, n))
+            log(f"lsap {name} B={b}: latency bound " + json.dumps(
+                {k: record[k] for k in ("dependent_steps", "sm_clock_mhz", "latency_bound_ms")})
+                + f", share {record['latency_bound_ms'] / device_ms:.3f} of the device time")
     return record
+
+
+STEP_CYCLES = 400 + 2 * 20  # a Dijkstra step: a cost row read from L2/HBM, two shared round trips
+PHASE_CYCLES = 2 * 20  # a row's init, dual update and augmentation: a shared round trip each
+
+
+def lsap_latency_bound(lsap_mod, cost: torch.Tensor, n: int) -> dict:
+    """The kernel's least time as a chain of dependent steps: a block solves
+    one problem, each Dijkstra step waits for the step before (its row is
+    the previous step's argmin), and each of the N rows adds its init, dual
+    update and augmentation phases, each behind a barrier. The steps are
+    `lsap_plain`'s count of the longest problem (each run alone); a step
+    costs one device-memory round trip and two shared-memory ones (the
+    block argmin's two barriers), ~400 and ~20 cycles, Hopper's typical
+    latencies, at the card's maximum SM clock. Shuffles and barrier
+    arrivals are not counted: a floor."""
+    steps = []
+    for k in range(cost.shape[0]):
+        before = lsap_mod.lsap_plain.steps
+        lsap_mod.lsap_plain(cost[k:k + 1])
+        steps.append(lsap_mod.lsap_plain.steps - before)
+    res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    mhz = float(res.stdout.split()[0])
+    cycles = max(steps) * STEP_CYCLES + 3 * n * PHASE_CYCLES
+    return {"dependent_steps": max(steps), "row_phases": 3 * n, "sm_clock_mhz": mhz,
+            "latency_bound_ms": cycles / (mhz * 1e3)}
 
 
 def tiny_model_kwargs(pc):
@@ -1245,32 +1306,16 @@ def _merge_on_a_batch(build_model, root, out, tokenizer, cfg, dcfg):
     return {k: (_rel_err(after[k], before[k]), _rel_err(unmerged[k], before[k])) for k in before}
 
 
-def phase_lifecycle(build_model, msda_forward, msda_backward, card_line):
-    """The ZiRa lifecycle at full width through the port's ODinW driver
-    (`scripts/train_odinw.main`): a seeded reference-format checkpoint with
-    a prompt memory, two synthetic ODinW tasks (600x800 PPM originals, eval
-    at 800x1066 in 800x1216, training at `train_short_sides`), learned-name
-    caption augmentation on, LIFECYCLE_ITERS iterations a task at batch
-    LIFECYCLE_BATCH with a checkpoint every LIFECYCLE_CKPT, the merge, the
-    prompt capture, LIFECYCLE_REPLAY replay iterations and the eval of both
-    tasks. Then the checks (launches, the merges, the report) and a second
-    run that must restore both tasks and report the same. Returns the two
-    kernels' launches over the first run."""
-    from ziragroundingdino_torch import config as pc
+def write_lifecycle_inputs(build_model, root: pathlib.Path):
+    """Phase 6's inputs under `root` (made anew): the seeded reference-format
+    checkpoint of the ZiRa preset with seeded branches and a prompt memory,
+    a vocab, the two synthetic ODinW tasks and the overrides. Returns (the
+    checkpoint's state dict, its prompt memory, the vocab)."""
     from ziragroundingdino_torch.data import synthetic
-    from ziragroundingdino_torch.eval import evaluator
-    from ziragroundingdino_torch.models.zira import ZERO_VALUE
-    from ziragroundingdino_torch.ops import msda
-    from ziragroundingdino_torch.scripts import train_odinw
-    from ziragroundingdino_torch.text.tokenizer import WordPieceTokenizer, make_synthetic_vocab
-    from ziragroundingdino_torch.train import incremental
-    from ziragroundingdino_torch.train import trainer as trainer_mod
-    from ziragroundingdino_torch.utils import inference
+    from ziragroundingdino_torch.text.tokenizer import make_synthetic_vocab
 
-    root = pathlib.Path(__file__).resolve().parent / "build" / "lifecycle"
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
-    t0 = time.time()
     model = build_model("dualzerorepbranchgroundingdino", device="cpu", dtype="bfloat16", seed=0)
     _seeded_rep_modules(model)
     g = torch.Generator().manual_seed(4)
@@ -1289,13 +1334,45 @@ def phase_lifecycle(build_model, msda_forward, msda_backward, card_line):
                                    LIFECYCLE_ORIG, seed=100 + 10 * i)
     (root / "overrides.json").write_text(json.dumps(
         {"model": {"use_add_names": True, "use_learned_names": True}}))
-    out = root / "out"
-    args = ["--checkpoint", str(root / "ckpt.pth"), "--vocab", str(root / "vocab.txt"),
+    return before_all, memory, vocab
+
+
+def lifecycle_args(root: pathlib.Path, out: pathlib.Path, iters: int, ckpt: int,
+                   replay: int) -> list:
+    """`train_odinw`'s arguments for phase 6's inputs under `root`."""
+    return ["--checkpoint", str(root / "ckpt.pth"), "--vocab", str(root / "vocab.txt"),
             "--datasets-root", str(root / "data"), "--tasks", ",".join(LIFECYCLE_TASKS),
             "--output-dir", str(out), "--batch-size", str(LIFECYCLE_BATCH),
-            "--max-iter", str(LIFECYCLE_ITERS), "--checkpoint-period", str(LIFECYCLE_CKPT),
-            "--replay-iters", str(LIFECYCLE_REPLAY),
-            "--config-overrides", str(root / "overrides.json")]
+            "--max-iter", str(iters), "--checkpoint-period", str(ckpt),
+            "--replay-iters", str(replay), "--config-overrides", str(root / "overrides.json")]
+
+
+def phase_lifecycle(build_model, msda_forward, msda_backward, card_line):
+    """The ZiRa lifecycle at full width through the port's ODinW script
+    (`scripts/train_odinw.main`): a seeded reference-format checkpoint with
+    a prompt memory, two synthetic ODinW tasks (600x800 PPM originals, eval
+    at 800x1066 in 800x1216, training at `train_short_sides`), learned-name
+    caption augmentation on, LIFECYCLE_ITERS iterations a task at batch
+    LIFECYCLE_BATCH with a checkpoint every LIFECYCLE_CKPT, the merge, the
+    prompt capture, LIFECYCLE_REPLAY replay iterations and the eval of both
+    tasks. Then the checks (launches, the merges, the report) and a second
+    run that must restore both tasks and report the same. Returns the two
+    kernels' launches over the first run."""
+    from ziragroundingdino_torch import config as pc
+    from ziragroundingdino_torch.eval import evaluator
+    from ziragroundingdino_torch.models.zira import ZERO_VALUE
+    from ziragroundingdino_torch.ops import msda
+    from ziragroundingdino_torch.scripts import train_odinw
+    from ziragroundingdino_torch.text.tokenizer import WordPieceTokenizer
+    from ziragroundingdino_torch.train import incremental
+    from ziragroundingdino_torch.train import trainer as trainer_mod
+    from ziragroundingdino_torch.utils import inference
+
+    root = pathlib.Path(__file__).resolve().parent / "build" / "lifecycle"
+    t0 = time.time()
+    before_all, memory, vocab = write_lifecycle_inputs(build_model, root)
+    out = root / "out"
+    args = lifecycle_args(root, out, LIFECYCLE_ITERS, LIFECYCLE_CKPT, LIFECYCLE_REPLAY)
     log(f"lifecycle: checkpoint, vocab and {len(LIFECYCLE_TASKS)} tasks written in "
         f"{time.time() - t0:.1f} s")
 
@@ -2714,6 +2791,542 @@ def _swin_b_driver(root, build_model, inference, optim, step, tokenizer_mod, tra
                       "card": card_line}
 
 
+# ---------------------------------------------------------------------------
+# 11. data parallelism: train_odinw --mesh over NCCL, two ranks sharing the
+#     card over gloo, gradient accumulation
+# ---------------------------------------------------------------------------
+
+DP_ITERS = 2  # 11a: steps a task, at phase 6's batch (2)
+DP_TOL = 1e-2  # 11b/11c: batch 1 against batch 2 (relative, or of each tensor's scale)
+# 11b/11c run in f32: the random weights' bf16 encoder scores hold exact
+# ties, and which tied queries the top-900 selection keeps depends on the
+# batch's size, so a bf16 image at batch 1 meets other decoder queries than
+# at batch 2 (aux box losses 10-20% apart on an H100)
+DP_DTYPE = "float32"
+DP_PRESETS = ("dualzerorepbranchgroundingdino", "repconvbngroundingdino")
+DP_TOP = 100  # 11a/11b: the reference's most confident detections a run must also hold
+DP_LAUNCHES = (18, 12, 1)  # msda_forward (remat), msda_backward, lsap launches a train step
+DP_CARD = "cuda:0"  # the card of every phase 11 process (11b's two ranks share it)
+WORKER = pathlib.Path(__file__).resolve()  # the script `run_ranks` starts
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(kind: str, n: int, root: pathlib.Path, timeout: int = 900) -> float:
+    """This script's phase 11 worker `kind` in n processes started by
+    `torch.distributed.run` (its own process group; this process joins
+    none); returns the launch's wall seconds, raises if a rank failed."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(n),
+           "--master_addr", "127.0.0.1", "--master_port", str(_free_port()),
+           str(WORKER), "--phase11-worker", kind,
+           "--phase11-root", str(root)]
+    t = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout)
+    (root / f"worker_{kind}.log").write_text(res.stdout + res.stderr)
+    if res.returncode:
+        tail = "\n".join((res.stdout + res.stderr).splitlines()[-60:])
+        raise AssertionError(f"phase 11 worker {kind} on {n} ranks exited {res.returncode}:\n"
+                             f"{tail}")
+    return time.perf_counter() - t
+
+
+class _StepProbe:
+    """Around the trainer's `train_step` and the evaluator's inference: per
+    step its ms (synchronised) and its `msda_forward` / `msda_backward` /
+    `lsap` launches; the first step's losses and the trainable gradients
+    its backward left; one step's NCCL kernel launches under torch.profiler
+    (`profile_at`) and DDP's bucket count; each eval batch's image ids and
+    detections."""
+
+    def __init__(self, profile_at=None):
+        from ziragroundingdino_torch.eval import evaluator
+        from ziragroundingdino_torch.ops.lsap import lsap_cuda
+        from ziragroundingdino_torch.ops.msda_cuda import msda_backward, msda_forward
+        from ziragroundingdino_torch.train import trainer as trainer_mod
+
+        self.trainer_mod, self.evaluator = trainer_mod, evaluator
+        self.counters = (msda_forward, msda_backward, lsap_cuda)
+        self.profile_at = profile_at
+        self.ms, self.launches, self.evals = [], [], []
+        self.losses = self.grads = self.nccl = self.buckets = self.nccl_kernels_traced = None
+        self.saved = []
+
+    def _launched(self):
+        return tuple(c.launches for c in self.counters)
+
+    def step(self, model, optimizer, batch, generator=None, **kw):
+        from torch.nn.parallel import DistributedDataParallel
+        from torch.profiler import ProfilerActivity, profile
+
+        i = len(self.ms)
+        if i == 0:
+            def capture():
+                self.grads = {n: p.grad.detach().float().cpu()
+                              for n, p in optimizer.params.items() if p.grad is not None}
+                return type(optimizer).step(optimizer)
+            optimizer.step = capture
+        prof = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                if i == self.profile_at else contextlib.nullcontext())
+        before = self._launched()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        try:
+            with prof as p:
+                metrics = self.orig_step(model, optimizer, batch, generator, **kw)
+                torch.cuda.synchronize()
+        finally:
+            if i == 0:
+                del optimizer.step
+        self.ms.append((time.perf_counter() - t) * 1e3)
+        self.launches.append(tuple(a - b for a, b in zip(self._launched(), before)))
+        if i == 0:
+            self.losses = {k: v.detach().float().cpu() for k, v in metrics.items()
+                           if k != "grad_norm"}
+        if p is not None:
+            from torch.autograd import DeviceType
+
+            # the collectives' calls on the host (one NCCL kernel each), and
+            # the NCCL kernels that the trace shows on the card
+            self.nccl = sum(1 for e in p.events() if e.device_type == DeviceType.CPU
+                            and e.name == "nccl:all_reduce")
+            self.nccl_kernels_traced = sum(1 for e in p.events()
+                                           if e.device_type == DeviceType.CUDA
+                                           and "nccl" in e.name.lower())
+            if isinstance(model, DistributedDataParallel):
+                self.buckets = len(model._get_ddp_logging_data()["bucket_sizes"].split(","))
+        return metrics
+
+    def make_inference_fn(self, *a, **k):
+        fn = self.orig_make(*a, **k)
+
+        def recorded(batch):
+            det = fn(batch)
+            self.evals.append((np.asarray(batch["image_ids"]).tolist(),
+                               {n: v.float().cpu() for n, v in det.items()}))
+            return det
+        return recorded
+
+    def install(self):
+        self.orig_step = self.trainer_mod.train_step
+        self.orig_make = self.evaluator.make_inference_fn
+        self.trainer_mod.train_step = self.step
+        self.evaluator.make_inference_fn = self.make_inference_fn
+        return self
+
+    def restore(self):
+        self.trainer_mod.train_step = self.orig_step
+        self.evaluator.make_inference_fn = self.orig_make
+
+    def record(self) -> dict:
+        return {"ms": self.ms, "launches": self.launches, "evals": self.evals,
+                "losses": self.losses, "grads": self.grads, "nccl": self.nccl,
+                "nccl_kernels_traced": self.nccl_kernels_traced, "buckets": self.buckets}
+
+
+def _images(evals):
+    """The eval's images in the global order from each rank's (image ids,
+    detections) per batch (`evals`, one list per rank): batch by batch,
+    rank by rank, without the padded copies (a copy repeats an image of its
+    global batch)."""
+    rows = []
+    for batches in zip(*evals):
+        seen = set()
+        for ids, det in batches:
+            for j, i in enumerate(ids):
+                if i not in seen:
+                    seen.add(i)
+                    rows.append((i, {k: v[j] for k, v in det.items()}))
+    return rows
+
+
+def _same_detections(label, got, want, size: float, tol=DP_TOL) -> dict:
+    """Each image's detections against the reference's: the same images in
+    the same order, the same count, and (unless `tol` is None) the sorted
+    scores within `tol` and every one of the reference's DP_TOP most
+    confident detections found in `got` with its label and its box within
+    `tol` of the image's size (an order-free match: near-ties of bf16
+    scores may swap neighbours). Returns the errors."""
+    if [i for i, _ in got] != [i for i, _ in want]:
+        raise AssertionError(f"{label}: image order {[i for i, _ in got]} against "
+                             f"{[i for i, _ in want]}")
+    score_err = box_err = 0.0
+    for (_, g), (_, w) in zip(got, want):
+        if len(g["scores"]) != len(w["scores"]):
+            raise AssertionError(f"{label}: {len(g['scores'])} detections, not {len(w['scores'])}")
+        score_err = max(score_err, float((g["scores"].sort(descending=True).values
+                                          - w["scores"].sort(descending=True).values).abs().max()))
+        for j in w["scores"].argsort(descending=True)[:DP_TOP].tolist():
+            same = g["labels"] == w["labels"][j]
+            d = (g["boxes"][same] - w["boxes"][j]).abs().amax(-1) / size
+            box_err = max(box_err, float(d.min()) if len(d) else float("inf"))
+    if tol is not None and (score_err > tol or box_err > tol):
+        raise AssertionError(f"{label}: scores off by {score_err}, boxes by {box_err} of the "
+                             f"image size")
+    return {"images": len(got), "score_max_abs_err": score_err, "box_max_err_of_size": box_err}
+
+
+def _grad_errors(got: dict, want: dict) -> float:
+    """The largest gradient error, each tensor's against its own scale; a
+    conv bias that a batch-statistics BatchNorm follows (repconvbn's
+    `branch.conv.bias`, whose gradient is 0 in exact arithmetic, so both
+    sides hold rounding) against its conv weight's."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"gradients of {sorted(set(got) ^ set(want))} on one side only")
+
+    def scale(n):
+        if n.endswith("branch.conv.bias"):
+            n = n[:-len("bias")] + "weight"
+        return max(float(want[n].abs().max()), 1e-30)
+
+    return max(float((got[n] - want[n]).abs().max()) / scale(n) for n in want)
+
+
+def _dp_inputs(pc, tokenizer_mod, transforms, device):
+    """11b/11c's global batch of 2: phase 5b's image and its mirror image,
+    its 4-category caption, 5 seeded boxes each (so that each half holds as
+    many targets as the other)."""
+    words = ["person", "dog", "cat", "car"]
+    tok = tokenizer_mod.WordPieceTokenizer(tokenizer_mod.make_synthetic_vocab(words))
+    cfg = pc.get_model_config("dualzerorepbranchgroundingdino")
+    tb = tokenizer_mod.tokenize_captions(tok, [" . ".join(words) + " ."] * 2,
+                                         max_text_len=cfg.max_text_len,
+                                         max_categories=cfg.max_categories)
+    pixels, mask = synthetic_image(transforms, pc)
+    pixels = np.concatenate([pixels, pixels[:, :, ::-1]])
+    mask = np.concatenate([mask, mask])
+    return train_batch(tb, np.ascontiguousarray(pixels), mask, device, n_labels=len(words))
+
+
+def _dp_model(build_model, optim, preset: str, device, dtype: str = DP_DTYPE, **overrides):
+    """A preset at full width in DP_DTYPE, seed 0, its ZiRa branches seeded; for
+    the repconvbn preset every ZeroConvBN made to keep its batch's
+    statistics as its running ones (momentum 0, `update_stats`), so that
+    they can be read after a step."""
+    from ziragroundingdino_torch.models import zira
+
+    model = build_model(preset, device="cpu", dtype=dtype, seed=0, **overrides)
+    _seeded_rep_modules(model)
+    model.to(device)
+    for m in model.modules():
+        if isinstance(m, zira.ZeroConvBN):
+            m.momentum = 0.0
+            m.forward_train = functools.partial(zira.ZeroConvBN.forward_train, m,
+                                                update_stats=True)
+    optim.set_trainable(model, optim.trainable_patterns_for_cfg(model.cfg),
+                        freeze_all=model.cfg.freeze_all)
+    return model
+
+
+class _GradKeeper:
+    """An optimizer for `train_step` that keeps the gradients it is given."""
+
+    def __init__(self, model):
+        self.params = {n: p for n, p in model.named_parameters() if p.requires_grad}
+        self.grads = None
+
+    def will_update(self):
+        return True
+
+    def step(self):
+        self.grads = {n: p.grad.detach().float().cpu() for n, p in self.params.items()
+                      if p.grad is not None}
+        for p in self.params.values():
+            p.grad = None
+        return torch.zeros(())
+
+
+def _bn_stats(model) -> dict:
+    from ziragroundingdino_torch.models import zira
+
+    return {f"{n}.{k}": getattr(m.branch.bn, k).detach().float().cpu()
+            for n, m in model.named_modules() if isinstance(m, zira.ZeroConvBN)
+            for k in ("running_mean", "running_var")}
+
+
+def _dp_step(build_model, optim, step, preset, batch, device, rank=None):
+    """One step of `preset` on `batch` (this rank's half under DDP when
+    `rank` is given): its global losses, the trainable gradients and the
+    BatchNorm statistics. Each run matches its own outputs (`lsap`): bf16
+    encoder scores hold exact ties, whose order in the top-900 query
+    selection may differ between a batch of 1 and one of 2, so the query
+    indices of one run's assignment do not name the other's queries; the
+    losses and gradients do not depend on that order."""
+    model = _dp_model(build_model, optim, preset, device)
+    keeper = _GradKeeper(model)
+    net = model
+    if rank is not None:
+        batch = {k: v[rank:rank + 1] for k, v in batch.items()}
+        net = step.wrap_ddp(model)
+    metrics = step.train_step(net, keeper, batch)
+    out = {"losses": {k: float(v) for k, v in metrics.items() if k != "grad_norm"},
+           "grads": keeper.grads, "bn": _bn_stats(model)}
+    del net, model
+    torch.cuda.empty_cache()
+    return out
+
+
+DP_ROUNDS, DP_STEPS = 4, 3  # 11a's timing: rounds of steps each way, the order alternating
+
+
+def _ddp_overhead(build_model, optim, step, pc, tokenizer_mod, transforms) -> dict:
+    """ZiRa train steps as `train_odinw` takes them (bf16, remat, dropout on) at
+    11b's batch of 2, with the DDP wrapper and without it on the same model
+    in turns (DDP, plain, plain, DDP, ...), on one rank, after one step
+    each: what the wrapper costs before a second card shares the work."""
+    model = _dp_model(build_model, optim, DP_PRESETS[0], DP_CARD, dtype="bfloat16", **REMAT)
+    opt = optim.Optimizer(model, pc.OptimizerConfig(), pc.ScheduleConfig())
+    batch = _dp_inputs(pc, tokenizer_mod, transforms, DP_CARD)
+    nets = {"ddp": step.wrap_ddp(model), "plain": model}
+    gen = torch.Generator(device=DP_CARD).manual_seed(0)
+    for net in nets.values():
+        step.train_step(net, opt, batch, gen)
+    ms = {"ddp": [], "plain": []}
+    for r in range(DP_ROUNDS):
+        for mode in (("ddp", "plain") if r % 2 == 0 else ("plain", "ddp")):
+            for _ in range(DP_STEPS):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                step.train_step(nets[mode], opt, batch, gen)
+                torch.cuda.synchronize()
+                ms[mode].append((time.perf_counter() - t) * 1e3)
+    del nets, model, opt
+    torch.cuda.empty_cache()
+    return {"step_ms": ms, "median_ms": {k: statistics.median(v) for k, v in ms.items()}}
+
+
+def phase11_worker(kind: str, root: pathlib.Path) -> None:
+    """A rank of phase 11, started by `run_ranks`: "a", `train_odinw --mesh
+    1` over NCCL with `_StepProbe` (the second step profiled), then
+    `_ddp_overhead`; "b", two
+    ranks on one card over gloo: `_dp_step` of each DP_PRESETS preset on
+    its half of the batch, then `eval_coco --mesh 2`. Writes its record to
+    `root/<kind>_rank<r>.pt`."""
+    import os
+
+    from ziragroundingdino_torch import config as pc
+    from ziragroundingdino_torch.data import transforms
+    from ziragroundingdino_torch.models import build_model
+    from ziragroundingdino_torch.parallel import dist
+    from ziragroundingdino_torch.scripts import eval_coco, train_odinw
+    from ziragroundingdino_torch.text import tokenizer as tokenizer_mod
+    from ziragroundingdino_torch.train import optim, step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = int(os.environ["RANK"])
+    spec = json.loads((root / "spec.json").read_text())
+    out = {}
+    if kind == "a":
+        dist.init_from_env(DP_CARD)  # NCCL on the card; `train_odinw` keeps the group
+        probe = _StepProbe(profile_at=1).install()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            t = time.perf_counter()
+            out["report"] = train_odinw.main(spec["train_args"] + ["--mesh", "1"])
+            out["run_s"] = time.perf_counter() - t
+        finally:
+            probe.restore()
+        out.update(probe.record(), peak=torch.cuda.max_memory_allocated())
+        out["overhead"] = _ddp_overhead(build_model, optim, step, pc, tokenizer_mod, transforms)
+        dist.destroy()
+    else:
+        dist.init_from_env(DP_CARD, "gloo")
+        x = torch.full((3,), float(rank + 1), device=DP_CARD)
+        y = dist.all_reduce_sum(x)
+        if y.tolist() != [3.0] * 3:
+            raise AssertionError(f"gloo all-reduce of card tensors on rank {rank}: {y.tolist()}")
+        batch = _dp_inputs(pc, tokenizer_mod, transforms, DP_CARD)
+        for preset in DP_PRESETS:
+            out[preset] = _dp_step(build_model, optim, step, preset, batch, DP_CARD, rank)
+        probe = _StepProbe().install()
+        try:
+            out["eval"] = eval_coco.main(spec["eval_args"] + [
+                "--mesh", "2", "--device", DP_CARD, "--dist-backend", "gloo"])
+        finally:
+            probe.restore()
+        out["evals"] = probe.evals
+        dist.destroy()
+    torch.save(out, root / f"{kind}_rank{rank}.pt")
+
+
+def phase_data_parallel(build_model, optim, step, tokenizer_mod, transforms, pc,
+                        msda_forward, msda_backward, card_line):
+    """11a: `train_odinw --mesh 1` under `torch.distributed.run` (NCCL, one
+    rank) on phase 6's seeded checkpoint and tasks, DP_ITERS steps a task,
+    against the plain run in this process: the first step's losses
+    bitwise, every trainable gradient within REMAT_GRAD_TOL of its scale,
+    the eval's images in the same order with as many detections each;
+    DP_LAUNCHES a step either way.
+    11b: two ranks on the card over gloo: one DDP step of each DP_PRESETS
+    preset on one image a rank against this process at batch 2 (each run
+    matching its own outputs), losses within DP_TOL relative,
+    gradients within DP_TOL of their scale, the repconvbn statistics within
+    DP_TOL (11b and 11c in DP_DTYPE); then `eval_coco --mesh 2` on task A's
+    3 test images (the last batch padded) against `eval_coco`. 11c:
+    `batch_size_scale=2` over the
+    two halves against one step at batch 2: AdamW and the schedule step
+    once, the EMA twice, the trainable tensors after the update within
+    DP_TOL of their scale, one `lsap` launch a call."""
+    from ziragroundingdino_torch.ops.lsap import lsap_cuda
+    from ziragroundingdino_torch.scripts import eval_coco, train_odinw
+
+    root = pathlib.Path(__file__).resolve().parent / "build" / "phase11"
+    t0 = time.time()
+    write_lifecycle_inputs(build_model, root)
+    task = next(iter(LIFECYCLE_TASKS))
+    split = root / "data" / task / "test"
+    overrides = json.loads((root / "overrides.json").read_text())
+    overrides["model"]["compute_dtype"] = DP_DTYPE
+    (root / "overrides_eval.json").write_text(json.dumps(overrides))
+    eval_args = ["--checkpoint", str(root / "ckpt.pth"), "--vocab", str(root / "vocab.txt"),
+                 "--json", str(split / "annotations_without_background.json"),
+                 "--image-root", str(split), "--batch-size", str(LIFECYCLE_BATCH),
+                 "--config-overrides", str(root / "overrides_eval.json")]
+    (root / "spec.json").write_text(json.dumps({
+        "train_args": lifecycle_args(root, root / "mesh1", DP_ITERS, DP_ITERS, 0),
+        "eval_args": eval_args}))
+    result = {"card": card_line}
+
+    # 11a: the plain run here, then --mesh 1 over NCCL
+    probe = _StepProbe().install()
+    try:
+        t = time.perf_counter()
+        train_odinw.main(lifecycle_args(root, root / "plain", DP_ITERS, DP_ITERS, 0))
+        plain_s = time.perf_counter() - t
+    finally:
+        probe.restore()
+    plain = probe.record()
+    launch_s = run_ranks("a", 1, root)
+    mesh = torch.load(root / "a_rank0.pt", weights_only=False)
+    bitwise = {k: bool(torch.equal(mesh["losses"][k], v)) for k, v in plain["losses"].items()}
+    grad_err = _grad_errors(mesh["grads"], plain["grads"])
+    steps = DP_ITERS * len(LIFECYCLE_TASKS)
+    for label, rec in (("plain", plain), ("--mesh 1", mesh)):
+        if rec["launches"] != [DP_LAUNCHES] * steps:
+            raise AssertionError(f"11a {label}: launches a step {rec['launches']}, not "
+                                 f"{DP_LAUNCHES} x {steps}")
+    if sorted(mesh["losses"]) != sorted(plain["losses"]) or not all(bitwise.values()):
+        raise AssertionError(f"11a: first step's losses not bitwise equal: {bitwise}")
+    if grad_err > REMAT_GRAD_TOL:
+        raise AssertionError(f"11a: first step's gradients off by {grad_err} of their scale")
+    # the two runs' weights part after the first step (msda_backward's
+    # unordered atomics, then AdamW's normalised steps), so only the images'
+    # order and count are held here; 11b compares detections of equal weights
+    size = float(max(LIFECYCLE_ORIG))
+    evals = _same_detections("11a eval", _images([mesh["evals"]]), _images([plain["evals"]]),
+                             size, tol=None)
+    result["11a"] = {
+        "first_step_losses_bitwise": True, "first_step_grad_max_rel_err": grad_err,
+        "step_ms_ddp": mesh["ms"], "step_ms_plain": plain["ms"],
+        "run_step_median_ms": {"ddp": statistics.median(mesh["ms"]),
+                                  "plain": statistics.median(plain["ms"])},
+        "nccl_all_reduce_calls_per_step": mesh["nccl"], "ddp_buckets": mesh["buckets"],
+        "nccl_kernels_in_the_trace": mesh["nccl_kernels_traced"],
+        "ddp_overhead": mesh["overhead"],
+        "launches_per_step": {"msda_forward": DP_LAUNCHES[0], "msda_backward": DP_LAUNCHES[1],
+                              "lsap": DP_LAUNCHES[2]},
+        "peak_gib": mesh["peak"] / 2**30, "eval": evals, "run_s": mesh["run_s"],
+        "plain_run_s": plain_s, "launch_s": launch_s}
+    log("11a: " + json.dumps(result["11a"]))
+    if not mesh["buckets"] or mesh["nccl"] < mesh["buckets"]:
+        raise AssertionError(f"11a: {mesh['nccl']} NCCL all-reduces in a step, "
+                             f"{mesh['buckets']} DDP buckets")
+    torch.cuda.empty_cache()
+
+    # 11b: this process at batch 2, then two ranks on the card over gloo
+    batch = _dp_inputs(pc, tokenizer_mod, transforms, DP_CARD)
+    ref = {p: _dp_step(build_model, optim, step, p, batch, DP_CARD) for p in DP_PRESETS}
+    probe = _StepProbe().install()
+    try:
+        ref_eval = eval_coco.main(eval_args + ["--device", DP_CARD])
+    finally:
+        probe.restore()
+    ref_images = _images([probe.evals])
+    launch_s = run_ranks("b", 2, root)
+    ranks = [torch.load(root / f"b_rank{r}.pt", weights_only=False) for r in range(2)]
+    result["11b"] = {"launch_s": launch_s}
+    for preset in DP_PRESETS:
+        got, want = ranks[0][preset], ref[preset]
+        errs = {k: abs(got["losses"][k] - v) / max(abs(v), 1e-30)
+                for k, v in want["losses"].items()}
+        loss_err = max(errs.values())
+        grad_err = _grad_errors(got["grads"], want["grads"])
+        bn_err = max((float((got["bn"][k] - v).abs().max() / max(float(v.abs().max()), 1e-30))
+                      for k, v in want["bn"].items()), default=0.0)
+        if ranks[1][preset]["losses"] != got["losses"]:
+            raise AssertionError(f"11b {preset}: the ranks' losses differ")
+        if sorted(got["losses"]) != sorted(want["losses"]) or max(
+                loss_err, grad_err, bn_err) > DP_TOL:
+            worst = sorted(errs, key=errs.get)[-5:]
+            raise AssertionError(f"11b {preset}: losses {loss_err}, gradients {grad_err}, "
+                                 f"BN statistics {bn_err} against batch 2; worst losses "
+                                 + ", ".join(f"{k} {got['losses'][k]} vs {want['losses'][k]}"
+                                             for k in worst))
+        if (preset == "repconvbngroundingdino") != bool(want["bn"]):
+            raise AssertionError(f"11b {preset}: BatchNorm statistics {sorted(want['bn'])}")
+        result["11b"][preset] = {"loss_max_rel_err": loss_err, "grad_max_rel_err": grad_err,
+                                 "bn_stats_max_rel_err": bn_err if want["bn"] else None}
+    result["11b"]["eval"] = _same_detections("11b eval", _images([r["evals"] for r in ranks]),
+                                             ref_images, size)
+    ap = {k: (ranks[0]["eval"][k], ref_eval[k]) for k in ("AP", "AP50", "AP75")}
+    same = json.dumps(ranks[0]["eval"], sort_keys=True) == json.dumps(ranks[1]["eval"],
+                                                                       sort_keys=True)
+    if any(abs(a - b) > DP_TOL for a, b in ap.values()) or not same:
+        raise AssertionError(f"11b: eval_coco --mesh 2 against one process: {ap}")
+    result["11b"]["eval"]["ap_mesh2_one"] = ap
+    log("11b: " + json.dumps(result["11b"]))
+    torch.cuda.empty_cache()
+
+    # 11c: two accumulated calls of one image each against one call at batch 2
+    cfg = pc.OptimizerConfig()
+    updated = {}
+    emas = [0]
+    ema_update = optim.ema_update
+
+    def counted(*a, **k):
+        emas[0] += 1
+        return ema_update(*a, **k)
+
+    for k, micro in ((2, [{n: v[i:i + 1] for n, v in batch.items()} for i in range(2)]),
+                     (1, [batch])):
+        model = _dp_model(build_model, optim, DP_PRESETS[0], DP_CARD)
+        opt = optim.Optimizer(model, cfg, pc.ScheduleConfig(), ema_decay=0.999,
+                              batch_size_scale=k)
+        emas[0] = 0
+        optim.ema_update = counted
+        before = lsap_cuda.launches
+        try:
+            for b in micro:
+                step.train_step(model, opt, b)
+        finally:
+            optim.ema_update = ema_update
+        adamw_steps = {int(s["step"]) for s in opt.adamw.state.values()}
+        if (adamw_steps, opt.schedule.last_epoch, emas[0], lsap_cuda.launches - before) != (
+                {1}, 1, len(micro), len(micro)):
+            raise AssertionError(f"11c k={k}: AdamW steps {adamw_steps}, schedule "
+                                 f"{opt.schedule.last_epoch}, EMA updates {emas[0]}, lsap "
+                                 f"launches {lsap_cuda.launches - before} in {len(micro)} calls")
+        updated[k] = {n: p.detach().float().cpu() for n, p in opt.params.items()}
+        del model, opt
+        torch.cuda.empty_cache()
+    acc_err = _grad_errors(updated[2], updated[1])
+    moved = max(float((updated[2][n] - updated[1][n]).abs().max()) for n in updated[1])
+    if acc_err > DP_TOL:
+        raise AssertionError(f"11c: accumulated update off by {acc_err} of the tensors' scale")
+    result["11c"] = {"adamw_steps": 1, "schedule_steps": 1, "ema_updates": 2,
+                     "lsap_launches_per_call": 1, "param_max_rel_err": acc_err,
+                     "param_max_abs_diff": moved}
+    result["phase_s"] = time.time() - t0
+    shutil.rmtree(root, ignore_errors=True)
+    return result
+
+
 def _merged_ms(intervals) -> float:
     """Length of the union of (start, end) intervals in microseconds, in ms."""
     total, end = 0.0, float("-inf")
@@ -2820,10 +3433,16 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", type=pathlib.Path, default=None, metavar="DIR",
                         help="also profile requests of the main path; trace to DIR")
+    parser.add_argument("--phase11-worker", choices=["a", "b"], default=None,
+                        help=argparse.SUPPRESS)  # a rank of phase 11, started by run_ranks
+    parser.add_argument("--phase11-root", type=pathlib.Path, default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    if args.phase11_worker:
+        phase11_worker(args.phase11_worker, args.phase11_root)
+        return 0
     from ziragroundingdino_torch import config as pc
     from ziragroundingdino_torch.data import transforms
     from ziragroundingdino_torch.models import build_model
@@ -2917,6 +3536,11 @@ def main() -> int:
                                               tokenizer_mod, transforms, pc, msda_forward,
                                               msda_backward, card_line, args.profile)
     phase_10_lsap = matcher_counts()[0] - matched[0]
+    torch.cuda.empty_cache()
+
+    # 11. data parallelism: --mesh over NCCL, two ranks on the card, accumulation
+    data_parallel = phase_data_parallel(build_model, optim, step, tokenizer_mod,
+                                        transforms, pc, msda_forward, msda_backward, card_line)
 
     # result
     enc, dec = rec["encoder"], rec["decoder"]
@@ -2958,6 +3582,7 @@ def main() -> int:
             "10c_steps": arch_launches["10c"]["steps"][0],
             "10c_finetune": arch_launches["10c"]["finetune"][0], "10d": arch_launches["10d"],
             "10e": arch_launches["10e"], "10f": arch_launches["10f"][0]},
+        "phase_11a_launches_per_step": DP_LAUNCHES[0],
         "decoder": {k: dec[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
                                         "max_abs_err", "l2_gather_mb")},
         "decoder_timed_at": "decoder call, bf16 value, B=1 Q=900 S=20197 H=8 D=32 L=P=4",
@@ -2991,6 +3616,7 @@ def main() -> int:
             "10b_steps": arch_launches["10b"]["steps"][1:],
             "10c_steps": arch_launches["10c"]["steps"][1:],
             "10c_finetune": arch_launches["10c"]["finetune"][1], "10f": arch_launches["10f"][1:]},
+        "phase_11a_launches_per_step": DP_LAUNCHES[1],
         "device_ms": benc["device_ms"],
         "launch_ms": benc["launch_ms"],
         "by_path": {f"{name} {path}": {k: v for k, v in r.items() if k != "bound_by"}
@@ -3013,6 +3639,8 @@ def main() -> int:
                     "plain_ms: lsap_plain on the card; no PyTorch call solves an assignment, "
                     "scipy_host_ms is the host path (copy, scipy, copy back)",
         "device_ms": rec_lsap["device_ms"],
+        "latency_bound_ms": rec_lsap["latency_bound_ms"],
+        "dependent_steps": rec_lsap["dependent_steps"],
         "scipy_host_ms": rec_lsap["scipy_host_ms"],
         "plain_cpu_ms": rec_lsap["plain_cpu_ms"],
         "lifecycle_launches": life_lsap,
@@ -3020,6 +3648,8 @@ def main() -> int:
         "pet_train_launches": {k: v["lsap_launches"] for k, v in pet.items()},
         "phase_8b_launches": phase_8b_lsap,
         "phase_10_launches": phase_10_lsap,
+        "phase_11a_launches_per_step": DP_LAUNCHES[2],
+        "phase_11c_launches_per_call": 1,
     }]
     log("train_step: " + json.dumps({
         "warm_median_ms": step_ms, "peak_memory_gib": peak / 2**30,
@@ -3042,6 +3672,14 @@ def main() -> int:
         "at": "800x1216, bf16, BERT-base, d=256, 6+6 layers, 900 queries; 10a/10b/10f Swin-B "
               "384 (window 12), 10c ResNet-50 + learned positions, 10d Swin-L 384, 10e Swin-T "
               "with one ablation switch off"}))
+    log("phase 11: " + json.dumps({
+        **data_parallel,
+        "at": "dualzerorepbranchgroundingdino (11b also repconvbngroundingdino), Swin-T, "
+              "11a bf16, 11b/11c f32, "
+              f"800x1216 bucket; 11a: train_odinw --mesh 1 under torch.distributed.run (NCCL), "
+              f"{len(LIFECYCLE_TASKS)} tasks x {DP_ITERS} steps at batch {LIFECYCLE_BATCH}, "
+              "remat on, against the plain run; 11b: 2 ranks on one card over gloo, "
+              "global batch 2; 11c: batch_size_scale 2 over two images"}))
     log(json.dumps({"kernels": kernels}))
     log(card_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

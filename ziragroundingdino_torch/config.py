@@ -306,14 +306,16 @@ class ScheduleConfig:
 @dataclass(frozen=True)
 class TrainConfig:
     """What the trainer reads (`train/trainer.py`): where it writes, how long
-    it runs, how often it logs and checkpoints, and the seed of its
-    per-iteration generators. The optimizer's settings are `OptimizerConfig`
-    and `ScheduleConfig`."""
+    it runs, how often it logs, checkpoints and evaluates, and the seed of
+    its per-iteration generators. The optimizer's settings are
+    `OptimizerConfig` and `ScheduleConfig`, and the accumulation
+    (`batch_size_scale`) is the `Optimizer`'s."""
 
     output_dir: str = "./output"
     max_iter: int = 2000
     seed: int = 42
     checkpoint_period: int = 2000
+    eval_period: int = 2000  # iterations between calls of the trainer's eval_fn
     log_period: int = 20
     fast_dev_run: bool = False  # shrink the run to 20 iterations (`train_net.py:313-317`)
 

@@ -18,12 +18,14 @@ import numpy as np
 from ziragroundingdino_torch.config import DataConfig
 from ziragroundingdino_torch.data.transforms import (
     Sample,
+    eval_size,
     eval_transform,
     normalize,
     pad_to_bucket,
     pick_bucket,
     train_transform,
 )
+from ziragroundingdino_torch.parallel import dist
 from ziragroundingdino_torch.text.tokenizer import WordPieceTokenizer, tokenize_captions
 
 
@@ -136,9 +138,14 @@ class DataLoader:
     scheduling, and `start_batch=k` (index draws only, no decoding) gives
     batch k of an uninterrupted run: a mid-task resume sees the same data.
     `batch_size` is the global batch; with `shard_count` > 1 this loader
-    yields shard `shard_rank`'s contiguous slice of every global batch.
+    yields shard `shard_rank`'s contiguous slice of every global batch
+    (both default to the process group's rank and size, `parallel.dist`, as
+    the JAX package's take `jax.process_index()` / `process_count()`).
     Eval pads the last batch with copies of its last sample and says how
-    many are real in `real_count`."""
+    many are real in `real_count`; a shard's slice of it says how many of
+    the slice are, and pads to the bucket of the whole global batch (the
+    resized size follows from each image's recorded size), so that each
+    image meets the padding it would meet in one process."""
 
     def __init__(
         self,
@@ -153,9 +160,11 @@ class DataLoader:
         num_workers: Optional[int] = None,
         caption: Optional[str] = None,
         start_batch: int = 0,
-        shard_rank: int = 0,
-        shard_count: int = 1,
+        shard_rank: Optional[int] = None,
+        shard_count: Optional[int] = None,
     ):
+        shard_rank = dist.process_index() if shard_rank is None else shard_rank
+        shard_count = dist.process_count() if shard_count is None else shard_count
         if batch_size % shard_count:
             raise ValueError(f"global batch {batch_size} not divisible by {shard_count} shards")
         self.shard_rank, self.shard_count = shard_rank, shard_count
@@ -235,6 +244,9 @@ class DataLoader:
 
     def _eval_iter(self):
         n = len(self.ds)
+        if self.shard_count > 1:
+            yield from self._sharded_eval_iter()
+            return
         for start in range(0, n, self.batch_size):
             samples = [self._make_sample(i) for i in range(start, min(start + self.batch_size, n))]
             real = len(samples)
@@ -242,5 +254,28 @@ class DataLoader:
                 samples.append(samples[-1])
             batch = collate(samples, [self.caption] * len(samples), self.tokenizer, self.cfg,
                             self.max_text_len, self.max_categories, train=False)
+            batch["real_count"] = np.asarray(real, np.int32)
+            yield batch
+
+    def _sharded_eval_iter(self):
+        """This shard's slice of every global eval batch, the last one padded
+        with copies of the dataset's last sample (a slice of copies only
+        has `real_count` 0), at the global batch's bucket."""
+        n = len(self.ds)
+        local = self.batch_size // self.shard_count
+        lo = self.shard_rank * local
+        for start in range(0, n, self.batch_size):
+            idxs = [min(i, n - 1) for i in range(start, start + self.batch_size)]
+            real = min(max(n - start - lo, 0), local)
+            # collate's bucket of the global batch: the largest height and
+            # width among its images' buckets
+            buckets = [pick_bucket(*eval_size(self.ds.images[i]["height"],
+                                              self.ds.images[i]["width"], self.cfg),
+                                   self.cfg.shape_buckets) for i in idxs]
+            bucket = (max(b[0] for b in buckets), max(b[1] for b in buckets))
+            samples = [self._make_sample(i) for i in idxs[lo:lo + local]]
+            batch = collate(samples, [self.caption] * local, self.tokenizer, self.cfg,
+                            self.max_text_len, self.max_categories, train=False,
+                            force_bucket=bucket)
             batch["real_count"] = np.asarray(real, np.int32)
             yield batch

@@ -99,15 +99,20 @@ def resize_u8(image: np.ndarray, nh: int, nw: int) -> np.ndarray:
     return y[0].permute(1, 2, 0).round().clamp(0, 255).to(torch.uint8).numpy()
 
 
-def resize_shortest_edge(image: np.ndarray, boxes: np.ndarray, short: int,
-                         max_size: int) -> Tuple[np.ndarray, np.ndarray]:
-    """detectron2's ResizeShortestEdge: scale so that the short side is
-    `short`, unless the long side would then exceed `max_size`."""
-    h, w = image.shape[:2]
+def shortest_edge_size(h: int, w: int, short: int, max_size: int) -> Tuple[int, int]:
+    """detectron2's ResizeShortestEdge: the (h, w) that scales the short side
+    to `short`, unless the long side would then exceed `max_size`."""
     scale = short / min(h, w)
     if max(h, w) * scale > max_size:
         scale = max_size / max(h, w)
-    nh, nw = int(round(h * scale)), int(round(w * scale))
+    return int(round(h * scale)), int(round(w * scale))
+
+
+def resize_shortest_edge(image: np.ndarray, boxes: np.ndarray, short: int,
+                         max_size: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Resize to `shortest_edge_size`, the boxes with the image."""
+    h, w = image.shape[:2]
+    nh, nw = shortest_edge_size(h, w, short, max_size)
     if (nh, nw) != (h, w):
         image = resize_u8(image, nh, nw)
     if boxes.size:
@@ -185,6 +190,11 @@ def train_transform(sample: Sample, cfg: DataConfig, rng: np.random.RandomState)
     short = int(rng.choice(cfg.train_short_sides))
     image, boxes = resize_shortest_edge(image, boxes, short, cfg.max_size)
     return dataclasses.replace(sample, image=image, boxes=boxes, labels=labels)
+
+
+def eval_size(h: int, w: int, cfg: DataConfig) -> Tuple[int, int]:
+    """The size `eval_transform` gives an (h, w) image."""
+    return shortest_edge_size(h, w, cfg.test_short_side, cfg.max_size)
 
 
 def eval_transform(sample: Sample, cfg: DataConfig) -> Sample:

@@ -2,19 +2,24 @@
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional, Tuple, Union
 
 import torch
+import torch.distributed
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
-    """`None` means the CUDA card; with no card that raises instead of
-    running on the CPU. Pass `device="cpu"` to run on the CPU."""
+    """`None` means the CUDA card (in a process of a data-parallel group,
+    this process's card, `cuda:{LOCAL_RANK}`); with no card that raises
+    instead of running on the CPU. Pass `device="cpu"` to run on the CPU."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device is available; pass device='cpu' to run on the CPU"
             )
+        if torch.distributed.is_available() and torch.distributed.is_initialized():
+            return torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
         return torch.device("cuda")
     return torch.device(device)
 

@@ -16,6 +16,7 @@ import torch
 from ziragroundingdino_torch.eval.coco_map import CocoMeanAP
 from ziragroundingdino_torch.eval.postprocess import scale_to_original, top_k_detections
 from ziragroundingdino_torch.models.groundingdino import GroundingDINO
+from ziragroundingdino_torch.parallel import dist
 from ziragroundingdino_torch.text.masks import recover_to_cls_logits
 
 logger = logging.getLogger(__name__)
@@ -70,9 +71,16 @@ def inference_on_dataset(
     """COCO metrics of `inference_fn`'s detections over the loader's eval
     batches, and `sec_per_img` / `images_per_sec`: the time of
     `inference_fn` (host-to-device copy, forward, top-k; the card
-    synchronised) over the images after the first `num_warmup` batches."""
-    evaluator = CocoMeanAP(num_classes=num_classes)
-    n_images = 0
+    synchronised) over the images after the first `num_warmup` batches.
+
+    Under data parallelism the loader yields this rank's slice of every
+    global batch (`data.loader.DataLoader`); rank 0 gathers every rank's
+    images, puts them back in the global order and scores them, so the
+    metrics are the one-process run's, and every rank returns them. The
+    time is then the slowest rank's, over every rank's images
+    (`parallel/sharded_eval.py` of the JAX package: the reference's DDP
+    eval with all-gathered predictions, `util/misc.py:173-217`)."""
+    images = []  # per batch, the evaluator's arguments of each real image
     compute_time = 0.0
     timed_images = 0
     for it, batch in enumerate(loader):
@@ -87,6 +95,7 @@ def inference_on_dataset(
             timed_images += real
         scores, labels, boxes = (np.asarray(torch.as_tensor(det[k]).cpu())[:real]
                                  for k in ("scores", "labels", "boxes"))
+        rows = []
         for i in range(real):
             keep = scores[i] > score_floor
             v = batch["gt_valid"][i]
@@ -98,17 +107,30 @@ def inference_on_dataset(
                              crowd_labels=batch["crowd_labels"][i][cv])
             if "gt_areas" in batch:
                 extra["gt_areas"] = batch["gt_areas"][i][v]
-            evaluator.add(int(batch["image_ids"][i]), boxes[i][keep], scores[i][keep],
+            rows.append(((int(batch["image_ids"][i]), boxes[i][keep], scores[i][keep],
                           labels[i][keep], _denorm(batch["gt_boxes"][i][v], orig),
-                          batch["gt_labels"][i][v], **extra)
-            n_images += 1
-    res = evaluator.summarize()
-    res["n_images"] = float(n_images)
-    if timed_images:
-        res["sec_per_img"] = compute_time / timed_images
-        res["images_per_sec"] = timed_images / compute_time
-    if class_names is not None:
-        logger.info("per-category AP:\n%s", evaluator.per_category_table(class_names))
-        res["per_category_AP"] = {n: float(v)
-                                  for n, v in zip(class_names, evaluator.per_category_ap())}
-    return res
+                          batch["gt_labels"][i][v]), extra))
+        images.append(rows)
+
+    res = None
+    ranks = dist.gather_to_rank0((images, compute_time, timed_images))
+    if ranks is not None:
+        evaluator = CocoMeanAP(num_classes=num_classes)
+        n_images = 0
+        for per_rank in zip(*(r[0] for r in ranks)):  # batch by batch, rank by rank
+            for rows in per_rank:
+                for args, extra in rows:
+                    evaluator.add(*args, **extra)
+                    n_images += 1
+        compute_time = max(r[1] for r in ranks)
+        timed_images = sum(r[2] for r in ranks)
+        res = evaluator.summarize()
+        res["n_images"] = float(n_images)
+        if timed_images:
+            res["sec_per_img"] = compute_time / timed_images
+            res["images_per_sec"] = timed_images / compute_time
+        if class_names is not None:
+            logger.info("per-category AP:\n%s", evaluator.per_category_table(class_names))
+            res["per_category_AP"] = {n: float(v)
+                                      for n, v in zip(class_names, evaluator.per_category_ap())}
+    return dist.broadcast_object(res)

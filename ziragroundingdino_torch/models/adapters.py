@@ -32,6 +32,8 @@ def zero_loss(x: torch.Tensor) -> torch.Tensor:
 
 
 def _self_kd(x: torch.Tensor, use: bool) -> torch.Tensor:
+    # a plain mean: under data parallelism every rank's x has one shape, so
+    # the ranks' mean of it (DDP's) is the global batch's
     return x.float().abs().mean() if use else zero_loss(x)
 
 
@@ -146,7 +148,7 @@ class MoeAdapter(nn.Module):
         b, n, d = x.shape
         y, loss = self.adapter_moe(x.reshape(b * n, d), generator, noise)
         y = y.reshape(b, n, -1)
-        if self.use_self_kd:
+        if self.use_self_kd:  # a mean over equal-shaped shards: global under DDP
             loss = loss + y.float().abs().mean()
         return y * self.gate_base_scale, loss
 

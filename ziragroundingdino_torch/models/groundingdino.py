@@ -362,6 +362,8 @@ class GroundingDINO(nn.Module):
         if self.prompt_adapter is not None:
             ctx = srcs[-1].float().mean(dim=(1, 2))[:, None, :]
             prompt_out, prompt_loss = self.prompt_adapter(ctx.to(cd), generator)
+            # a mean over equal-shaped shards (the loader pins the bucket):
+            # DDP's mean of the ranks' is the global batch's
             prompt_loss = prompt_loss + prompt_out.float().abs().mean()
             text_dict = dict(text_dict, encoded_text=text_dict["encoded_text"] + prompt_out)
 

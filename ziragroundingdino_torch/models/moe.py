@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from ziragroundingdino_torch.models.layers import Linear
+from ziragroundingdino_torch.parallel.dist import all_reduce_sum
 
 
 def cv_squared(x: torch.Tensor) -> torch.Tensor:
@@ -94,15 +95,19 @@ class MoE(nn.Module):
         topk_gates = torch.softmax(top_logits[:, :k], dim=-1)
         gates = torch.zeros_like(logits).scatter(1, order[:, :k], topk_gates)  # [N, E]
 
-        importance = gates.sum(0)
+        # the balance loss is a function of the whole batch's sums, not a sum
+        # over images: under data parallelism every rank takes it of the
+        # global sums, where a gradient is taken (`parallel.dist.all_reduce_sum`)
+        reduce = all_reduce_sum if torch.is_grad_enabled() else (lambda t: t)
+        importance = reduce(gates.sum(0))
         if noisy and k < e:
             thr_in = top_logits[:, k:k + 1]
             thr_out = top_logits[:, k - 1:k]
             prob_in = _normal_cdf((clean - thr_in) / noise_std)
             prob_out = _normal_cdf((clean - thr_out) / noise_std)
-            load = torch.where(logits > thr_in, prob_in, prob_out).sum(0)
+            load = reduce(torch.where(logits > thr_in, prob_in, prob_out).sum(0))
         else:
-            load = (gates > 0).float().sum(0)
+            load = reduce((gates > 0).float().sum(0))
         loss = cv_squared(importance) + cv_squared(load)
 
         xc = x.to(cd)

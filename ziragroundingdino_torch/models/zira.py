@@ -22,7 +22,8 @@ sees what the task learned.
 * `RepZeroTransformerLayer`: a frozen attention block whose FFN linears are
   dual (`multilayer_branch.py:149-227`); no preset builds it;
 * `ZeroConvBN`: the repconvbn variant's branch, conv + BatchNorm on batch
-  statistics in training, folded into the freeze conv by `rep_merge_convbn`
+  statistics in training (the global batch's under data parallelism),
+  folded into the freeze conv by `rep_merge_convbn`
   (`groundingdino_repconvbn.py:65-140`). It has no `scaling`, so `rep_merge`
   leaves it alone, as the JAX package's does.
 """
@@ -36,6 +37,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ziragroundingdino_torch.models.layers import LayerNorm, Linear, MultiHeadAttention
+from ziragroundingdino_torch.parallel import dist
+from ziragroundingdino_torch.parallel.dist import global_divisor
 
 ZERO_VALUE = 1e-8
 LAN_SCALE = 0.1
@@ -47,13 +50,19 @@ GN_GROUPS = 32
 def _masked_mean(per: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
     """The mean over every element, or with `mask` ([B, T] against per
     [B, T, D]) over the valid positions only (`_masked_mean`, `zira.py:35-51`
-    of the JAX package: the reference's batch-1 ZIL over unpadded tokens)."""
+    of the JAX package: the reference's batch-1 ZIL over unpadded tokens).
+    Under data parallelism the masked mean is the global batch's: the ranks'
+    captions hold different numbers of valid tokens, so the divisor is the
+    global count (`parallel.dist.global_divisor`). The plain mean needs no
+    such care: every rank's tensor has one shape (the loader pins the image
+    bucket, the caption's text bucket is the same), so the mean of the
+    ranks' means is the global mean."""
     if mask is None:
         return per.mean()
     m = mask.to(per.dtype)
     while m.dim() < per.dim():
         m = m[..., None]
-    return (per * m).sum() / m.expand(per.shape).sum().clamp(min=1.0)
+    return (per * m).sum() / global_divisor(m.expand(per.shape).sum())
 
 
 def smooth_l1_to_zero(x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -376,8 +385,15 @@ class ZeroConvBN(nn.Module):
         cd = self.freeze_conv.compute_dtype or x.dtype
         bn = self.branch.bn
         y = self.branch.conv(x).float()
-        mean = y.mean(dim=(0, 1, 2))
-        var = y.var(dim=(0, 1, 2), unbiased=False)
+        if dist.is_initialized():
+            # the global batch's statistics, as JAX's under pjit: a
+            # synchronised BatchNorm whose gradient flows through the sums
+            count = y.numel() // y.shape[-1] * dist.process_count()
+            mean = dist.all_reduce_sum(y.sum(dim=(0, 1, 2))) / count
+            var = dist.all_reduce_sum(((y - mean) ** 2).sum(dim=(0, 1, 2))) / count
+        else:
+            mean = y.mean(dim=(0, 1, 2))
+            var = y.var(dim=(0, 1, 2), unbiased=False)
         if update_stats:
             with torch.no_grad():
                 m = self.momentum

@@ -14,7 +14,9 @@ order: per target row i, Dijkstra over the query columns with
 column on ties (as `jnp.argmin`), then the dual updates and the
 augmentation along `pred`. It steps all problems of a batch together (a
 problem whose path has ended keeps its state), so the batch costs the
-longest path of each row, not their sum. The CPU uses it.
+longest path of each row, not their sum; `lsap_plain.steps` counts them
+(of one problem, the dependent steps of its block in the kernel). The CPU
+uses it.
 
 `lsap_cuda` launches `csrc/lsap.cu`: one block per problem, the query-long
 and target-long arrays in shared memory, a block-wide argmin per Dijkstra
@@ -60,6 +62,7 @@ def lsap_plain(cost: torch.Tensor) -> torch.Tensor:
             active = sink < 0
             if not bool(active.any()):
                 break
+            lsap_plain.steps += 1
             r = min_val[:, None] + c[problems, i] - u[problems, i][:, None] - v
             upd = active[:, None] & ~scanned & (r < shortest)
             pred = torch.where(upd, i[:, None], pred)
@@ -91,6 +94,9 @@ def lsap_plain(cost: torch.Tensor) -> torch.Tensor:
                     break
                 j = prev
     return col4row
+
+
+lsap_plain.steps = 0  # Dijkstra steps taken (all problems of a call step together)
 
 
 def _check(cost: torch.Tensor):

@@ -14,6 +14,16 @@ in `<output-dir>/result.json`. The port of the JAX package's
 
 (`swinb.json` holding `{"model": {"backbone": "swin_B_384_22k"}}` trains
 GroundingDINO-B.) It runs on the CUDA card unless `--device cpu` is given.
+Data-parallel over N cards, one process each:
+
+    torchrun --nproc-per-node N -m ziragroundingdino_torch.scripts.train_odinw \
+        --mesh N --batch-size <global batch, a multiple of N> ...
+
+Each rank trains on its slice of every global batch (DDP), computing what
+one process computes on the whole batch; rank 0 writes the checkpoints, the
+chained states and the report, and every rank writes its log
+(`<output-dir>/log.txt`, `log.rank{r}.txt`).
+
 As the JAX driver, it trains with remat on (`use_checkpoint` and
 `use_transformer_ckpt`: the fusion and deformable encoder layers are
 recomputed in the backward, the same gradients for less memory) unless
@@ -27,17 +37,18 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
-import logging
 import os
 from typing import Dict, List, Optional
 
 import numpy as np
 
-LEFT_OUT = "Not ported yet (multi-GPU training): --mesh (data/tensor/sequence parallel)."
+LEFT_OUT = ("Not ported yet: tensor and sequence parallelism (--mesh's model and seq axes, "
+            "ROADMAP Queue 1 item 10).")
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     from ziragroundingdino_torch.config import MODEL_PRESETS
+    from ziragroundingdino_torch.parallel import mesh
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0], epilog=LEFT_OUT)
     ap.add_argument("--checkpoint", required=True, help="reference-format .pth")
@@ -80,13 +91,17 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                          "backward: faster steps, more memory")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' to run on the CPU)")
+    mesh.add_mesh_args(ap, "'data[,model[,seq]]' axis sizes, e.g. '8': data parallel over 8 "
+                      "processes started by torchrun, one card each (model and seq, tensor "
+                      "and sequence parallelism, are not ported); default: one process")
     return ap.parse_args(argv)
 
 
-def check_stamp(args: argparse.Namespace) -> None:
+def check_stamp(args: argparse.Namespace, write: bool = True) -> None:
     """A resumed run that reuses chained state from a run with other args
     would corrupt the chain: compare the args that shape it with the stamp
-    of the first run in --output-dir, and refuse a difference."""
+    of the first run in --output-dir, and refuse a difference. Only
+    `write` (rank 0) stamps a fresh directory."""
     stamp = {k: getattr(args, k) for k in (
         "suite", "shot", "preset", "seed", "lr", "batch_size", "softfreeze_factor", "shuffle",
         "ema_decay", "tasks", "replay_iters", "eval_ema", "max_iter", "fast_dev_run")}
@@ -102,15 +117,34 @@ def check_stamp(args: argparse.Namespace) -> None:
         if diff and not args.force_resume:
             raise SystemExit(f"output dir {args.output_dir} was stamped with different run "
                              f"args: {diff}. Use a fresh --output-dir or --force-resume.")
-    else:
-        with open(stamp_path, "w") as f:
+    elif write:
+        with open(stamp_path + ".tmp", "w") as f:
             json.dump(stamp, f, indent=2)
+        os.replace(stamp_path + ".tmp", stamp_path)
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
+    from ziragroundingdino_torch.parallel import mesh
+
     args = parse_args(argv)
-    logging.basicConfig(level=logging.INFO)
-    check_stamp(args)
+    device, joined = mesh.init_mesh(args, args.batch_size)
+    try:
+        return _run(args, device)
+    finally:
+        if joined:
+            from ziragroundingdino_torch.parallel import dist
+
+            dist.destroy()
+
+
+def _run(args: argparse.Namespace, device) -> Dict[str, float]:
+    from ziragroundingdino_torch.parallel import dist
+    from ziragroundingdino_torch.utils.io import setup_logger
+
+    rank = dist.process_index()
+    check_stamp(args, write=rank == 0)
+    dist.barrier()
+    log = setup_logger(args.output_dir, rank=rank)
 
     from ziragroundingdino_torch.config import (
         DataConfig,
@@ -147,7 +181,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
         model_ov, data_ov = load_config_overrides(args.config_overrides)
     remat = not args.no_remat
     model_ov = {"use_checkpoint": remat, "use_transformer_ckpt": remat, **model_ov}
-    lm = load_model(args.checkpoint, args.vocab, preset=args.preset, device=args.device,
+    lm = load_model(args.checkpoint, args.vocab, preset=args.preset, device=device,
                     **model_ov)
     model, tokenizer, cfg = lm.model, lm.tokenizer, lm.cfg
     device = lm.device
@@ -192,7 +226,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
         marker = latest_checkpoint(os.path.join(task_dir, "ckpt"))
         start = checkpoint_step(marker) if marker else 0
         if start:
-            logging.info("task %s: mid-task checkpoint at iter %d", task.name, start)
+            log.info("task %s: mid-task checkpoint at iter %d", task.name, start)
         checkpoint_period = args.checkpoint_period or max(task.max_iter // 4, 1)
         tcfg = TrainConfig(output_dir=task_dir, max_iter=task.max_iter, seed=args.seed,
                            log_period=20, checkpoint_period=checkpoint_period,
@@ -232,15 +266,17 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
         tasks.append(task)
         chain_path = os.path.join(args.output_dir, task.name, "state_final.pt")
         if os.path.exists(chain_path):
-            logging.info("=== task %s already done; restoring ===", tm.name)
+            log.info("=== task %s already done; restoring ===", tm.name)
             state = load_incremental_state(chain_path, device)
             continue
-        logging.info("=== task %s (%d classes) ===", tm.name, len(task.class_names))
+        log.info("=== task %s (%d classes) ===", tm.name, len(task.class_names))
         state = run_task(state, task, model, make_trainer, tokenizer)
-        save_incremental_state(chain_path, state)
+        if rank == 0:
+            save_incremental_state(chain_path, state)
+        dist.barrier()
 
     if args.replay_iters > 0:
-        logging.info("=== replay phase (%d iters) ===", args.replay_iters)
+        log.info("=== replay phase (%d iters) ===", args.replay_iters)
         state = run_replay_phase(state, model, tokenizer, iters=args.replay_iters)
 
     coco_eval_fn = None
@@ -249,9 +285,11 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
             return eval_on(CocoDataset.from_json(args.coco_json, args.coco_root), params)
 
     report = final_report(state, tasks, coco_eval_fn)
-    with open(os.path.join(args.output_dir, "result.json"), "w") as f:
-        json.dump(report, f, indent=2)
-    print(json.dumps(report, indent=2))
+    if rank == 0:
+        with open(os.path.join(args.output_dir, "result.json"), "w") as f:
+            json.dump(report, f, indent=2)
+        print(json.dumps(report, indent=2))
+    dist.barrier()
     return report
 
 

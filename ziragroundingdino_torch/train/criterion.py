@@ -8,7 +8,11 @@ Targets are [B, N] arrays with a validity mask; the assignment is
 layer, aux layers, encoder head) all hold the same number of queries, so
 they are matched together: one `match_batch` call on the outputs stacked
 along the batch, one kernel launch on the card. `num_boxes` is the count of
-valid targets in the batch, at least 1.
+valid targets in the global batch, at least 1: a data-parallel rank divides
+its sums by that count over the number of ranks (`parallel.dist.
+global_divisor`), so that DDP's mean of the ranks' gradients is the
+gradient of the global batch's loss (`criterion.py:9-11` of the JAX
+package: under pjit its batch is the global one).
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from typing import Dict
 import torch
 
 from ziragroundingdino_torch.ops.box_ops import box_cxcywh_to_xyxy, generalized_box_iou_elementwise
+from ziragroundingdino_torch.parallel.dist import global_divisor
 from ziragroundingdino_torch.train.matcher import match_batch
 
 WEIGHT_DICT = {"loss_class": 1.0, "loss_bbox": 5.0, "loss_giou": 2.0}
@@ -64,7 +69,7 @@ def set_criterion(outputs: Dict, tgt_labels: torch.Tensor, tgt_boxes: torch.Tens
     """Last layer, aux `_{i}` and two-stage `_enc` losses, unweighted. Each
     output is matched on its own costs; all are solved in one
     `match_batch(..., impl=matcher_impl)` call."""
-    num_boxes = tgt_valid.float().sum().clamp(min=1.0)
+    num_boxes = global_divisor(tgt_valid.float().sum())
     suffixed = [("", outputs)]
     suffixed += [(f"_{i}", aux) for i, aux in enumerate(outputs.get("aux_outputs", ()))]
     if "interm_outputs" in outputs:

@@ -32,6 +32,7 @@ import torch
 
 from ziragroundingdino_torch.models.groundingdino import GroundingDINO, TextEncoderOnly
 from ziragroundingdino_torch.models.zira import rep_merge, scale_reset_for_cfg
+from ziragroundingdino_torch.parallel import dist
 from ziragroundingdino_torch.text.tokenizer import TextBatch, WordPieceTokenizer, tokenize_captions
 from ziragroundingdino_torch.train.optim import ZIRA_TRAINABLE_PATTERNS, set_trainable
 from ziragroundingdino_torch.train.trainer import save_atomically
@@ -208,12 +209,16 @@ def run_task(state: IncrementalState, task: TaskSpec, model: GroundingDINO,
     task's newest mid-task checkpoint (`train_net.py:298-305`); the loader's
     fast-forward keeps the data stream aligned. The merge comes before the
     prompt capture and before the next task: in eval a rep module runs its
-    freeze branch only."""
+    freeze branch only. Under data parallelism every rank runs it: the
+    trainer reduces the gradients, and the merge and the capture are
+    deterministic, so the ranks' states stay equal; the caller saves on
+    rank 0."""
     trainer, extract = make_trainer(state.params, task)
     start = trainer.resume_or_load()
     if start:
         logger.info("task %s: resuming at iter %d", task.name, start)
     trainer.train(start, task.max_iter)
+    trainer.close()
     model.load_state_dict(extract())
     # the scaling resets to the config's inits, not the library default
     rep_merge(model, scale_reset=scale_reset_for_cfg(model.cfg))
@@ -261,6 +266,8 @@ def run_replay_phase(state: IncrementalState, model: GroundingDINO,
         if (it + 1) % 20 == 0 or it == 0:
             logger.info("replay iter %d loss %.6f", it + 1, float(total.detach()))
     rep_merge(model, scale_reset=scale_reset_for_cfg(cfg))
+    # every rank replays alone: rank 0's result for all of them
+    dist.broadcast_module_(model)
     state.params = snapshot(model)
     return state
 
@@ -268,7 +275,9 @@ def run_replay_phase(state: IncrementalState, model: GroundingDINO,
 def final_report(state: IncrementalState, tasks: Sequence[TaskSpec],
                  coco_eval_fn: Optional[Callable] = None) -> Dict[str, float]:
     """`train_multidatasets.py:509-561`: every task's AP, their mean, and the
-    COCO zero-shot AP (retention) where `coco_eval_fn` is given."""
+    COCO zero-shot AP (retention) where `coco_eval_fn` is given. Under data
+    parallelism every rank calls it (the evals are sharded) and gets rank
+    0's report."""
     aps = []
     report: Dict[str, float] = {}
     for task in tasks:

@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 from ziragroundingdino_torch.config import OptimizerConfig, ScheduleConfig
+from ziragroundingdino_torch.parallel import dist
 
 # the reference's 'unfreeze "adapter"-named params'; the port's parameter
 # names use the same vocabulary (rep_linear_adapter, input_proj_conv_adapter)
@@ -144,12 +145,27 @@ class Optimizer:
     parameter group per lr factor, the schedule, and an EMA of the
     trainable parameters when `ema_decay` is given. A model with no
     trainable parameter takes steps that change nothing, as the JAX
-    package's optimizer does under an all-frozen mask."""
+    package's optimizer does under an all-frozen mask.
+
+    `batch_size_scale` = k > 1 accumulates gradients over k calls, as
+    `optax.MultiSteps(every_k_schedule=k)` does in the JAX package
+    (`train/optim.py:170-171`; the reference's `train_net.py:128-140`): the
+    backward adds each call's gradients into `.grad` (under DDP the first
+    k - 1 calls run under `no_sync()`, so the k-th reduces the sum), and the
+    k-th call applies the clip, AdamW and the schedule to their mean; the
+    schedule's count advances once per k calls. The EMA moves on every
+    call, as the JAX step's does after each `apply_updates` (a zero update
+    on the k - 1 calls between)."""
 
     def __init__(self, model: nn.Module, cfg: OptimizerConfig = OptimizerConfig(),
-                 schedule: ScheduleConfig = ScheduleConfig(), ema_decay: Optional[float] = None):
+                 schedule: ScheduleConfig = ScheduleConfig(), ema_decay: Optional[float] = None,
+                 batch_size_scale: int = 1):
         if cfg.name != "adamw":
             raise ValueError(f"the port's optimizer is adamw, not {cfg.name!r}")
+        if batch_size_scale < 1:
+            raise ValueError(f"batch_size_scale {batch_size_scale} must be at least 1")
+        self.batch_size_scale = batch_size_scale
+        self.mini_step = 0  # calls accumulated since the last update
         self.params = {n: p for n, p in model.named_parameters() if p.requires_grad}
         self.device = next(model.parameters()).device
         factor = lr_factor_fn(cfg.lr_factors)
@@ -168,10 +184,17 @@ class Optimizer:
         self.ema = (None if ema_decay is None
                     else {n: p.detach().clone() for n, p in self.params.items()})
 
+    def will_update(self) -> bool:
+        """Whether the next `step()` applies an update (the k-th call of an
+        accumulation; every call when `batch_size_scale` is 1)."""
+        return self.mini_step + 1 >= self.batch_size_scale
+
     def step(self) -> torch.Tensor:
         """Apply the gradients that the backward left on the trainable
-        parameters, then clear them. Returns their global norm before the
-        clip (0 without a trainable parameter)."""
+        parameters, then clear them; with `batch_size_scale` > 1 keep them
+        until the k-th call. Returns the global norm before the clip of the
+        gradient that is applied (between updates: of the mean gradient so
+        far); 0 without a trainable parameter."""
         if not self.params:
             return torch.zeros((), device=self.device)
         if all(p.grad is None for p in self.params.values()):
@@ -182,28 +205,62 @@ class Optimizer:
                 # without noisy gating) steps on a zero gradient, so that AdamW
                 # decays it and its moments as optax's does
                 p.grad = torch.zeros_like(p)
-        norm = clip_by_global_norm_([p.grad for p in self.params.values()], self.grad_clip)
-        self.adamw.step()
-        self.schedule.step()
+        grads = [p.grad for p in self.params.values()]
+        self.mini_step += 1
+        if self.mini_step < self.batch_size_scale:
+            norm = clip_by_global_norm_([g / self.mini_step for g in grads], 0.0)
+        else:
+            if self.batch_size_scale > 1:
+                for g in grads:
+                    g.div_(self.batch_size_scale)
+            norm = clip_by_global_norm_(grads, self.grad_clip)
+            self.adamw.step()
+            self.schedule.step()
+            self.adamw.zero_grad(set_to_none=True)
+            self.mini_step = 0
         if self.ema is not None:
             ema_update(self.ema, self.params, self.ema_decay)
-        self.adamw.zero_grad(set_to_none=True)
         return norm
+
+    def _reduced_accumulation(self) -> Dict[str, torch.Tensor]:
+        """The gradients accumulated so far, averaged over the ranks in place
+        (under DDP the calls between updates keep each rank's own sum; the
+        k-th call's reduction averages them in any case, so averaging them
+        earlier changes no update, and every rank then holds what a
+        checkpoint holds)."""
+        for p in self.params.values():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        dist.mean_over_ranks_([p.grad for p in self.params.values()])
+        return {n: p.grad.detach().clone() for n, p in self.params.items()}
 
     def state_dict(self) -> Dict:
         """AdamW's moments and step counts, the schedule's step and the EMA:
         what a checkpoint needs to resume (`torch.load(weights_only=True)`
-        reads it back)."""
+        reads it back); with `batch_size_scale` > 1 also the accumulation
+        (the calls since the last update and their gradients), so that a
+        checkpoint taken between updates resumes bitwise. Under DDP every
+        rank calls it at once (`_reduced_accumulation`)."""
         if not self.params:
             return {"adamw": None, "schedule": None, "ema": self.ema}
-        return {"adamw": self.adamw.state_dict(), "schedule": self.schedule.state_dict(),
-                "ema": self.ema}
+        state = {"adamw": self.adamw.state_dict(), "schedule": self.schedule.state_dict(),
+                 "ema": self.ema}
+        if self.batch_size_scale > 1:
+            state["accumulation"] = {"mini_step": self.mini_step,
+                                     "grads": self._reduced_accumulation()
+                                     if self.mini_step else None}
+        return state
 
     def load_state_dict(self, state: Dict) -> None:
         """Restore `state_dict()` of an Optimizer built the same way."""
         if self.adamw is not None:
             self.adamw.load_state_dict(state["adamw"])
             self.schedule.load_state_dict(state["schedule"])
+        if self.batch_size_scale > 1:
+            acc = state["accumulation"]
+            self.mini_step = acc["mini_step"]
+            for n, p in self.params.items():
+                p.grad = None if acc["grads"] is None else acc["grads"][n].clone()
         if (self.ema is None) != (state["ema"] is None):
             raise ValueError("the checkpoint's EMA does not match this optimizer's")
         if self.ema is not None:

@@ -18,11 +18,15 @@ cxcywh in [0, 1] and `gt_valid` [B, N].
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import contextlib
+from typing import Dict, Optional, Tuple, Union
 
 import torch
+from torch import nn
+from torch.nn.parallel import DistributedDataParallel
 
 from ziragroundingdino_torch.models.groundingdino import GroundingDINO
+from ziragroundingdino_torch.parallel import dist
 from ziragroundingdino_torch.text.masks import recover_to_cls_logits
 from ziragroundingdino_torch.train.criterion import set_criterion, weighted_total
 from ziragroundingdino_torch.train.optim import Optimizer
@@ -77,16 +81,60 @@ def compute_losses(model: GroundingDINO, batch: Dict[str, torch.Tensor],
     return total, losses
 
 
-def train_step(model: GroundingDINO, optimizer: Optimizer, batch: Dict[str, torch.Tensor],
-               generator: Optional[torch.Generator] = None,
+class StepLosses(nn.Module):
+    """`compute_losses` as a module: what DDP wraps, so that the whole
+    forward of a step (the model and the criterion) runs inside the
+    wrapper's `__call__` and its outputs are the losses alone."""
+
+    def __init__(self, model: GroundingDINO, matcher_impl: str = "lsap"):
+        super().__init__()
+        self.model = model
+        self.matcher_impl = matcher_impl
+
+    def forward(self, batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None):
+        return compute_losses(self.model, batch, generator, self.matcher_impl)
+
+
+def wrap_ddp(model: GroundingDINO, matcher_impl: str = "lsap") -> DistributedDataParallel:
+    """The model's step under DistributedDataParallel, over the process
+    group (`parallel.dist.init_from_env`); call after `optim.set_trainable`,
+    since DDP hooks only the parameters that require a gradient when it is
+    built, and build it anew for each task. It averages the trainable
+    gradients over the ranks as the backward makes them, bucket by bucket.
+    `find_unused_parameters=True`: which trainable parameters a step leaves
+    without a gradient depends on the preset and on the step (CAT's
+    `w_noise` gets one only under noisy gating, with a dropout generator),
+    which `static_graph` does not allow; the optimizer steps such a
+    parameter on zeros."""
+    device = next(model.parameters()).device
+    return DistributedDataParallel(
+        StepLosses(model, matcher_impl),
+        device_ids=[device] if device.type == "cuda" else None,
+        find_unused_parameters=True)
+
+
+def train_step(model: Union[GroundingDINO, DistributedDataParallel], optimizer: Optimizer,
+               batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None,
                matcher_impl: str = "lsap") -> Dict[str, torch.Tensor]:
     """One step; returns the losses and `grad_norm` (the trainable
     gradients' global norm before the clip) as detached tensors on the
     model's device. With the default `matcher_impl="lsap"` the step makes
-    no round trip to the host for the matcher."""
-    total, losses = compute_losses(model, batch, generator, matcher_impl)
-    if total.requires_grad:
-        total.backward()
+    no round trip to the host for the matcher. `model` may be `wrap_ddp`'s
+    (its own `matcher_impl` then holds): the batch is this rank's slice of
+    the global batch, the backward averages the gradients over the ranks
+    (but on the calls of an accumulation before its last, which run under
+    `no_sync()`), and the losses returned are the global batch's."""
+    if isinstance(model, DistributedDataParallel):
+        sync = contextlib.nullcontext() if optimizer.will_update() else model.no_sync()
+        with sync:
+            total, losses = model(batch, generator)
+            if total.requires_grad:
+                total.backward()
+        losses = dist.mean_over_ranks(losses)
+    else:
+        total, losses = compute_losses(model, batch, generator, matcher_impl)
+        if total.requires_grad:
+            total.backward()
     metrics = {k: v.detach() for k, v in losses.items()}
     metrics["grad_norm"] = optimizer.step()
     return metrics

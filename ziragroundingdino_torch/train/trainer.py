@@ -14,6 +14,14 @@ Randomness per iteration: iteration `it` draws its dropout from a fresh
 generator on the model's device, seeded from (`cfg.seed`, `it`) (the JAX
 package's `fold_in(rng, it)`), so a run resumed at `it` draws what an
 uninterrupted run draws there without saving a generator's state.
+
+Under data parallelism (a process group, `parallel.dist`) each rank runs
+the loop on its slice of every global batch through `train.step.wrap_ddp`;
+rank r > 0 draws its own dropout (seeded from (`cfg.seed`, `it`, r)); rank
+0 alone prints, writes `metrics.jsonl` and the checkpoints, and every rank
+waits for the write and resumes from the same file. `eval_fn`, called
+every `cfg.eval_period` iterations, runs on every rank (the eval is
+sharded too), as the JAX package's eval hook (`trainer.py:151-152`).
 """
 
 from __future__ import annotations
@@ -30,8 +38,10 @@ import torch
 
 from ziragroundingdino_torch.config import TrainConfig
 from ziragroundingdino_torch.models.groundingdino import GroundingDINO
+from ziragroundingdino_torch.parallel import dist
 from ziragroundingdino_torch.train.optim import Optimizer
-from ziragroundingdino_torch.train.step import train_step
+from ziragroundingdino_torch.train.step import train_step, wrap_ddp
+from ziragroundingdino_torch.utils.events import CommonMetricPrinter
 
 logger = logging.getLogger("ziragroundingdino_torch")
 
@@ -59,15 +69,19 @@ def save_atomically(obj, path: str) -> None:
 
 
 def save_checkpoint(ckpt_dir: str, model: GroundingDINO, optimizer: Optimizer, step: int) -> str:
-    os.makedirs(ckpt_dir, exist_ok=True)
+    """Write `step_N.pt` and the marker; under data parallelism every rank
+    calls it, rank 0 writes, and all return once the file is there."""
     name = f"step_{step}.pt"
     path = os.path.join(ckpt_dir, name)
-    save_atomically({"step": step, "model": model.state_dict(),
-                     "optimizer": optimizer.state_dict()}, path)
-    marker = os.path.join(ckpt_dir, "last_checkpoint")
-    with open(marker + ".tmp", "w") as f:
-        f.write(name)
-    os.replace(marker + ".tmp", marker)
+    payload = {"step": step, "model": model.state_dict(), "optimizer": optimizer.state_dict()}
+    if dist.is_main_process():
+        os.makedirs(ckpt_dir, exist_ok=True)
+        save_atomically(payload, path)
+        marker = os.path.join(ckpt_dir, "last_checkpoint")
+        with open(marker + ".tmp", "w") as f:
+            f.write(name)
+        os.replace(marker + ".tmp", marker)
+    dist.barrier()
     return path
 
 
@@ -88,16 +102,22 @@ def restore_checkpoint(path: str, device: Optional[torch.device] = None) -> dict
     return torch.load(path, map_location=device, weights_only=True)
 
 
-def iteration_generator(seed: int, it: int, device: torch.device) -> torch.Generator:
-    """The generator of iteration `it`, a function of (seed, it) alone."""
-    state = np.random.SeedSequence([seed, it]).generate_state(1, np.uint64)[0]
+def iteration_generator(seed: int, it: int, device: torch.device,
+                        rank: int = 0) -> torch.Generator:
+    """The generator of iteration `it` on data-parallel rank `rank`, a
+    function of (seed, it, rank) alone; rank 0's is the one-process run's,
+    and no two ranks share one."""
+    entropy = [seed, it] if rank == 0 else [seed, it, rank]
+    state = np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0]
     return torch.Generator(device=device).manual_seed(int(state) & (2**63 - 1))
 
 
 class Trainer:
     """The loop of one task: `step_fn(model, optimizer, batch, generator)`
     (`train.step.train_step`) over the loader's numpy batches, moved to the
-    model's device."""
+    model's device. Under a process group the step gets the model wrapped
+    by `train.step.wrap_ddp` (where it has trainable parameters), built
+    here, after `set_trainable`, and dropped by `close()`."""
 
     def __init__(
         self,
@@ -107,6 +127,7 @@ class Trainer:
         cfg: TrainConfig,
         step_fn: Optional[Callable] = None,  # default: train.step.train_step
         matcher_impl: str = "lsap",  # the default step's matcher
+        eval_fn: Optional[Callable] = None,  # (model) -> metrics, every cfg.eval_period
     ):
         self.model = model
         self.optimizer = optimizer
@@ -114,28 +135,44 @@ class Trainer:
         self.cfg = cfg
         self.step_fn = step_fn or functools.partial(train_step, matcher_impl=matcher_impl)
         self.device = next(model.parameters()).device
+        self.net = model
+        if dist.is_initialized() and optimizer.params:
+            self.net = wrap_ddp(model, matcher_impl)
+        self.eval_fn = eval_fn
+        self.eval_results: list = []  # (iteration, eval_fn's metrics)
+
+    def close(self) -> None:
+        """Drop the DDP wrapper, whose hooks would otherwise reduce the
+        gradients of a later backward through the same parameters."""
+        self.net = self.model
 
     def train(self, start_iter: int = 0, max_iter: Optional[int] = None) -> None:
         cfg = self.cfg
         max_iter = max_iter or cfg.max_iter
         if cfg.fast_dev_run:
             max_iter = min(max_iter, 20)
-        writer = JSONLWriter(os.path.join(cfg.output_dir, "metrics.jsonl"))
+        writer = printer = None
+        if dist.is_main_process():
+            writer = JSONLWriter(os.path.join(cfg.output_dir, "metrics.jsonl"))
+            printer = CommonMetricPrinter(max_iter)
         try:
-            self._loop(start_iter, max_iter, writer)
+            self._loop(start_iter, max_iter, writer, printer)
         finally:
-            writer.close()
+            if writer is not None:
+                writer.close()
 
-    def _loop(self, start_iter: int, max_iter: int, writer: JSONLWriter) -> None:
+    def _loop(self, start_iter: int, max_iter: int, writer: Optional[JSONLWriter],
+              printer: Optional[CommonMetricPrinter]) -> None:
         cfg = self.cfg
+        rank = dist.process_index()
         t_data = t_step = 0.0
         t0 = time.perf_counter()
         for it in range(start_iter, max_iter):
             batch = {k: torch.as_tensor(v).to(self.device)
                      for k, v in next(self.loader).items() if k != "real_count"}
             t1 = time.perf_counter()
-            metrics = self.step_fn(self.model, self.optimizer, batch,
-                                   iteration_generator(cfg.seed, it, self.device))
+            metrics = self.step_fn(self.net, self.optimizer, batch,
+                                   iteration_generator(cfg.seed, it, self.device, rank))
             t_data += t1 - t0
             t_step += time.perf_counter() - t1
             if (it + 1) % cfg.log_period == 0 or it + 1 == max_iter:
@@ -143,12 +180,14 @@ class Trainer:
                 line["data_time"] = t_data
                 line["step_time"] = t_step
                 t_data = t_step = 0.0
-                writer.write(it + 1, line)
-                logger.info("iter %d/%d total_loss %.4f", it + 1, max_iter,
-                            line.get("total_loss", float("nan")))
+                if writer is not None:
+                    writer.write(it + 1, line)
+                    printer.write(it + 1, line)
             if (it + 1) % cfg.checkpoint_period == 0 or it + 1 == max_iter:
                 save_checkpoint(os.path.join(cfg.output_dir, "ckpt"), self.model,
                                 self.optimizer, it + 1)
+            if self.eval_fn is not None and (it + 1) % cfg.eval_period == 0:
+                self.eval_results.append((it + 1, self.eval_fn(self.model)))
             t0 = time.perf_counter()
 
     def resume_or_load(self) -> int:
