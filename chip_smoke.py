@@ -169,18 +169,22 @@ Phases, in order (any failure raises, and the script exits non-zero):
      11b. two ranks sharing the card over gloo (NCCL refuses two ranks on
        one device), in f32 (DP_DTYPE: bf16 ties in the random weights' query
        selection make an image's decoder queries depend on the batch size):
-       one DDP step at global batch 2 (an image a rank) of the
-       ZiRa and repconvbn presets against this process at batch 2, each
-       run matching its own outputs: losses within DP_TOL relative,
-       every trainable gradient within DP_TOL of its scale, the repconvbn
-       branches' batch statistics (global: a synchronised BN) within
-       DP_TOL; then `eval_coco --mesh 2` on task A's 3 test images (the last
+       DDP steps at global batch 2 (an image a rank; unrelated images,
+       captions of 4 and 2 categories, 5 and 2 targets) of the ZiRa and
+       repconvbn presets against this process at batch 2. Each step twice:
+       the ranks choosing their queries and matching for themselves
+       (losses within DP_TOL relative, every trainable gradient within
+       DP_TOL of its scale), and replaying the batch-2 run's choice and
+       assignments (DP_PINNED_TOL); the repconvbn branches' batch
+       statistics (global: a synchronised BN) and ZeroConvBN outputs
+       within DP_STATS_TOL; a local `num_boxes` must miss by more than
+       DP_TOL. Then `eval_coco --mesh 2` on task A's 3 test images (the last
        global batch padded) against `eval_coco`: the same images in order,
        the same detections, the same AP;
      11c. `batch_size_scale=2` over two micro-steps of one image against
-       one step at batch 2: AdamW and the schedule step once, the EMA
-       twice, the trainable tensors within DP_TOL of their scale, one
-       `lsap` launch a call; a `phase 11: {...}` line.
+       one step at batch 2 (halves of equal counts): AdamW and the schedule
+       step once, the EMA twice, the trainable tensors within DP_TOL of
+       their scale, one `lsap` launch a call; a `phase 11: {...}` line.
   Phases 5b, 6, 7c, 8 and 10 check one `lsap` launch and no host matcher
   call (no copy of the costs to the host) per train step.
   12. result: a `kernels` JSON line, the nvidia-smi line, and last
@@ -2804,6 +2808,21 @@ DP_TOL = 1e-2  # 11b/11c: batch 1 against batch 2 (relative, or of each tensor's
 # at batch 2 (aux box losses 10-20% apart on an H100)
 DP_DTYPE = "float32"
 DP_PRESETS = ("dualzerorepbranchgroundingdino", "repconvbngroundingdino")
+# 11b's halves differ wherever the step reduces over the global batch: two
+# unrelated images, captions of 4 and 2 categories (masked ZIL means over
+# other numbers of valid tokens) and 5 and 2 valid targets (`num_boxes`)
+DP_CAPTIONS = (("person", "dog", "cat", "car"), ("bicycle", "zebra"))
+DP_TARGETS = (5, 2)
+# 11b's steps with each rank replaying the batch-2 run's chosen queries and
+# assignments: losses, and gradients of their scale (ten times and six times
+# the largest of an H100's readings, 6.3e-7 and 1.6e-4: f32 rounding, the
+# unordered atomics of `msda_backward`); left to choose for itself, a rank may
+# order two near-tied queries of the top 900 otherwise than batch 2 does,
+# which moves the decoder's class losses by ~5e-4 (DP_TOL holds those steps)
+DP_PINNED_TOL = (1e-5, 1e-3)
+# 11b: the BatchNorm statistics and the ZeroConvBN outputs, relative to their
+# scale, before any query is chosen (read: 2.4e-7 and 1.9e-7 on an H100)
+DP_STATS_TOL = 1e-5
 DP_TOP = 100  # 11a/11b: the reference's most confident detections a run must also hold
 DP_LAUNCHES = (18, 12, 1)  # msda_forward (remat), msda_backward, lsap launches a train step
 DP_CARD = "cuda:0"  # the card of every phase 11 process (11b's two ranks share it)
@@ -2971,8 +2990,8 @@ def _same_detections(label, got, want, size: float, tol=DP_TOL) -> dict:
     return {"images": len(got), "score_max_abs_err": score_err, "box_max_err_of_size": box_err}
 
 
-def _grad_errors(got: dict, want: dict) -> float:
-    """The largest gradient error, each tensor's against its own scale; a
+def _grad_errors(got: dict, want: dict) -> dict:
+    """Each gradient's error against its own scale, by name; a
     conv bias that a batch-statistics BatchNorm follows (repconvbn's
     `branch.conv.bias`, whose gradient is 0 in exact arithmetic, so both
     sides hold rounding) against its conv weight's."""
@@ -2984,23 +3003,36 @@ def _grad_errors(got: dict, want: dict) -> float:
             n = n[:-len("bias")] + "weight"
         return max(float(want[n].abs().max()), 1e-30)
 
-    return max(float((got[n] - want[n]).abs().max()) / scale(n) for n in want)
+    return {n: float((got[n] - want[n]).abs().max()) / scale(n) for n in want}
 
 
-def _dp_inputs(pc, tokenizer_mod, transforms, device):
-    """11b/11c's global batch of 2: phase 5b's image and its mirror image,
-    its 4-category caption, 5 seeded boxes each (so that each half holds as
-    many targets as the other)."""
-    words = ["person", "dog", "cat", "car"]
+def _worst(errors: dict, k: int = 3) -> dict:
+    """The k largest of {name: error}."""
+    return dict(sorted(errors.items(), key=lambda kv: -kv[1])[:k])
+
+
+def _dp_inputs(pc, tokenizer_mod, transforms, device, captions=DP_CAPTIONS,
+               targets=DP_TARGETS):
+    """A global batch of 2: phase 5b's 800x1199 image and an unrelated seeded
+    640x960 one, padded to one bucket, a caption each (`captions`, lists of
+    category words) and `targets` valid seeded boxes each, their labels
+    below the smaller caption's category count."""
+    words = sorted({w for c in captions for w in c})
     tok = tokenizer_mod.WordPieceTokenizer(tokenizer_mod.make_synthetic_vocab(words))
-    cfg = pc.get_model_config("dualzerorepbranchgroundingdino")
-    tb = tokenizer_mod.tokenize_captions(tok, [" . ".join(words) + " ."] * 2,
+    cfg = pc.get_model_config(DP_PRESETS[0])
+    tb = tokenizer_mod.tokenize_captions(tok, [" . ".join(c) + " ." for c in captions],
                                          max_text_len=cfg.max_text_len,
                                          max_categories=cfg.max_categories)
-    pixels, mask = synthetic_image(transforms, pc)
-    pixels = np.concatenate([pixels, pixels[:, :, ::-1]])
-    mask = np.concatenate([mask, mask])
-    return train_batch(tb, np.ascontiguousarray(pixels), mask, device, n_labels=len(words))
+    data_cfg = pc.DataConfig()
+    bucket = transforms.pick_bucket(800, 1199, data_cfg.shape_buckets)
+    padded = [transforms.pad_to_bucket(transforms.normalize(image, data_cfg), bucket)
+              for image in (synthetic_u8(), np.random.RandomState(1).randint(
+                  0, 256, (640, 960, 3)).astype(np.uint8))]
+    batch = train_batch(tb, np.stack([p for p, _ in padded]), np.stack([m for _, m in padded]),
+                        device, n_boxes=max(targets), n_labels=min(len(c) for c in captions))
+    batch["gt_valid"] = (torch.arange(max(targets), device=device)
+                         < torch.tensor(targets, device=device)[:, None])
+    return batch
 
 
 def _dp_model(build_model, optim, preset: str, device, dtype: str = DP_DTYPE, **overrides):
@@ -3049,23 +3081,80 @@ def _bn_stats(model) -> dict:
             for k in ("running_mean", "running_var")}
 
 
-def _dp_step(build_model, optim, step, preset, batch, device, rank=None):
+def _local_num_boxes_err(local: list, total: float) -> float:
+    """How far from the batch-2 total loss `total` the ranks' mean would be
+    if each rank divided its class and box sums by its own count of
+    targets (DP_TARGETS) in place of the global batch's share: from each
+    rank's own losses (`local`), whose set-criterion terms the global
+    divisor divided."""
+    from ziragroundingdino_torch.train.criterion import weighted_total
+
+    share = sum(DP_TARGETS) / len(DP_TARGETS)
+    mean = statistics.mean(
+        own["total_loss"] + (share / n - 1) * weighted_total(
+            {k: v for k, v in own.items() if k.startswith(("loss_class", "loss_bbox",
+                                                            "loss_giou"))})
+        for own, n in zip(local, DP_TARGETS))
+    return abs(mean - total) / abs(total)
+
+
+def _dp_step(build_model, optim, step, preset, batch, device, rank=None, pinned=None):
     """One step of `preset` on `batch` (this rank's half under DDP when
-    `rank` is given): its global losses, the trainable gradients and the
-    BatchNorm statistics. Each run matches its own outputs (`lsap`): bf16
-    encoder scores hold exact ties, whose order in the top-900 query
-    selection may differ between a batch of 1 and one of 2, so the query
-    indices of one run's assignment do not name the other's queries; the
-    losses and gradients do not depend on that order."""
+    `rank` is given): its global losses and this rank's own (`local`), the
+    trainable gradients, the BatchNorm statistics, the ZeroConvBN outputs,
+    the encoder positions chosen as the decoder's queries (`topk_idx`) and
+    the assignments the criterion used (`assignments`, the 7 outputs' rows
+    stacked output by output). The run chooses its queries and matches its
+    own outputs, or with `pinned` (the one-process run's record) replays
+    its image's rows of both."""
+    from ziragroundingdino_torch.models import transformer, zira
+    from ziragroundingdino_torch.train import criterion
+
     model = _dp_model(build_model, optim, preset, device)
     keeper = _GradKeeper(model)
     net = model
     if rank is not None:
         batch = {k: v[rank:rank + 1] for k, v in batch.items()}
         net = step.wrap_ddp(model)
-    metrics = step.train_step(net, keeper, batch)
-    out = {"losses": {k: float(v) for k, v in metrics.items() if k != "grad_norm"},
-           "grads": keeper.grads, "bn": _bn_stats(model)}
+    conv_out, chosen, used, local, hs = [], [], [], {}, []
+    model.transformer.decoder.register_forward_hook(
+        lambda m, i, o: hs.append(o[0][-1].detach().float().cpu()))
+    for m in model.modules():
+        if isinstance(m, zira.ZeroConvBN):
+            def recorded(x, fwd=m.forward_train):
+                out, zil = fwd(x)
+                conv_out.append(out.detach().float().cpu())
+                return out, zil
+            m.forward_train = recorded
+    select_topk, match_batch = transformer.select_topk, criterion.match_batch
+    mean_over_ranks = step.dist.mean_over_ranks
+
+    def selected(scores, k):
+        chosen.append(select_topk(scores, k) if pinned is None
+                      else pinned["topk_idx"][rank:rank + 1].to(device))
+        return chosen[-1]
+
+    def matched(*a, **k):
+        used.append(match_batch(*a, **k) if pinned is None
+                    else pinned["assignments"][rank::2].to(device))
+        return used[-1]
+
+    def kept(losses):
+        local.update({k: float(v) for k, v in losses.items()})
+        return mean_over_ranks(losses)
+
+    transformer.select_topk, criterion.match_batch = selected, matched
+    step.dist.mean_over_ranks = kept
+    try:
+        metrics = step.train_step(net, keeper, batch)
+    finally:
+        transformer.select_topk, criterion.match_batch = select_topk, match_batch
+        step.dist.mean_over_ranks = mean_over_ranks
+    losses = {k: float(v) for k, v in metrics.items() if k != "grad_norm"}
+    out = {"losses": losses, "local": local or losses, "grads": keeper.grads,
+           "bn": _bn_stats(model), "conv_out": conv_out, "topk_idx": chosen[0].cpu(),
+           "hs_last": hs[0],
+           "assignments": used[0].cpu()}
     del net, model
     torch.cuda.empty_cache()
     return out
@@ -3143,11 +3232,15 @@ def phase11_worker(kind: str, root: pathlib.Path) -> None:
             raise AssertionError(f"gloo all-reduce of card tensors on rank {rank}: {y.tolist()}")
         batch = _dp_inputs(pc, tokenizer_mod, transforms, DP_CARD)
         for preset in DP_PRESETS:
-            out[preset] = _dp_step(build_model, optim, step, preset, batch, DP_CARD, rank)
+            pinned = torch.load(root / f"pinned_{preset}.pt")
+            out[preset] = {"own": _dp_step(build_model, optim, step, preset, batch, DP_CARD,
+                                           rank),
+                           "pinned": _dp_step(build_model, optim, step, preset, batch, DP_CARD,
+                                              rank, pinned)}
         probe = _StepProbe().install()
         try:
             out["eval"] = eval_coco.main(spec["eval_args"] + [
-                "--mesh", "2", "--device", DP_CARD, "--dist-backend", "gloo"])
+                "--mesh", "2", "--device", DP_CARD])
         finally:
             probe.restore()
         out["evals"] = probe.evals
@@ -3163,16 +3256,17 @@ def phase_data_parallel(build_model, optim, step, tokenizer_mod, transforms, pc,
     bitwise, every trainable gradient within REMAT_GRAD_TOL of its scale,
     the eval's images in the same order with as many detections each;
     DP_LAUNCHES a step either way.
-    11b: two ranks on the card over gloo: one DDP step of each DP_PRESETS
-    preset on one image a rank against this process at batch 2 (each run
-    matching its own outputs), losses within DP_TOL relative,
-    gradients within DP_TOL of their scale, the repconvbn statistics within
-    DP_TOL (11b and 11c in DP_DTYPE); then `eval_coco --mesh 2` on task A's
-    3 test images (the last batch padded) against `eval_coco`. 11c:
-    `batch_size_scale=2` over the
-    two halves against one step at batch 2: AdamW and the schedule step
-    once, the EMA twice, the trainable tensors after the update within
-    DP_TOL of their scale, one `lsap` launch a call."""
+    11b: two ranks on the card over gloo: DDP steps of each DP_PRESETS
+    preset on `_dp_inputs`' halves against this process at batch 2, the
+    ranks choosing queries and matching for themselves (losses and
+    gradients within DP_TOL) and replaying batch 2's (DP_PINNED_TOL), the
+    repconvbn statistics and ZeroConvBN outputs within DP_STATS_TOL, and a
+    local `num_boxes` shown to miss (11b and 11c in DP_DTYPE); then
+    `eval_coco --mesh 2` on task A's 3 test images (the last batch padded)
+    against `eval_coco`. 11c: `batch_size_scale=2` over two halves of equal
+    counts against one step at batch 2: AdamW and the schedule step once,
+    the EMA twice, the trainable tensors after the update within DP_TOL of
+    their scale, one `lsap` launch a call."""
     from ziragroundingdino_torch.ops.lsap import lsap_cuda
     from ziragroundingdino_torch.scripts import eval_coco, train_odinw
 
@@ -3205,7 +3299,7 @@ def phase_data_parallel(build_model, optim, step, tokenizer_mod, transforms, pc,
     launch_s = run_ranks("a", 1, root)
     mesh = torch.load(root / "a_rank0.pt", weights_only=False)
     bitwise = {k: bool(torch.equal(mesh["losses"][k], v)) for k, v in plain["losses"].items()}
-    grad_err = _grad_errors(mesh["grads"], plain["grads"])
+    grad_err = max(_grad_errors(mesh["grads"], plain["grads"]).values())
     steps = DP_ITERS * len(LIFECYCLE_TASKS)
     for label, rec in (("plain", plain), ("--mesh 1", mesh)):
         if rec["launches"] != [DP_LAUNCHES] * steps:
@@ -3222,15 +3316,16 @@ def phase_data_parallel(build_model, optim, step, tokenizer_mod, transforms, pc,
     evals = _same_detections("11a eval", _images([mesh["evals"]]), _images([plain["evals"]]),
                              size, tol=None)
     result["11a"] = {
-        "first_step_losses_bitwise": True, "first_step_grad_max_rel_err": grad_err,
+        "first_step_losses_bitwise": all(bitwise.values()),
+        "first_step_grad_max_rel_err": grad_err,
         "step_ms_ddp": mesh["ms"], "step_ms_plain": plain["ms"],
         "run_step_median_ms": {"ddp": statistics.median(mesh["ms"]),
                                   "plain": statistics.median(plain["ms"])},
         "nccl_all_reduce_calls_per_step": mesh["nccl"], "ddp_buckets": mesh["buckets"],
         "nccl_kernels_in_the_trace": mesh["nccl_kernels_traced"],
         "ddp_overhead": mesh["overhead"],
-        "launches_per_step": {"msda_forward": DP_LAUNCHES[0], "msda_backward": DP_LAUNCHES[1],
-                              "lsap": DP_LAUNCHES[2]},
+        "launches_per_step": {name: [n[i] for n in mesh["launches"]] for i, name in
+                              enumerate(("msda_forward", "msda_backward", "lsap"))},
         "peak_gib": mesh["peak"] / 2**30, "eval": evals, "run_s": mesh["run_s"],
         "plain_run_s": plain_s, "launch_s": launch_s}
     log("11a: " + json.dumps(result["11a"]))
@@ -3242,6 +3337,8 @@ def phase_data_parallel(build_model, optim, step, tokenizer_mod, transforms, pc,
     # 11b: this process at batch 2, then two ranks on the card over gloo
     batch = _dp_inputs(pc, tokenizer_mod, transforms, DP_CARD)
     ref = {p: _dp_step(build_model, optim, step, p, batch, DP_CARD) for p in DP_PRESETS}
+    for p in DP_PRESETS:
+        torch.save({k: ref[p][k] for k in ("topk_idx", "assignments")}, root / f"pinned_{p}.pt")
     probe = _StepProbe().install()
     try:
         ref_eval = eval_coco.main(eval_args + ["--device", DP_CARD])
@@ -3251,27 +3348,59 @@ def phase_data_parallel(build_model, optim, step, tokenizer_mod, transforms, pc,
     launch_s = run_ranks("b", 2, root)
     ranks = [torch.load(root / f"b_rank{r}.pt", weights_only=False) for r in range(2)]
     result["11b"] = {"launch_s": launch_s}
+    failed = []
     for preset in DP_PRESETS:
-        got, want = ranks[0][preset], ref[preset]
-        errs = {k: abs(got["losses"][k] - v) / max(abs(v), 1e-30)
-                for k, v in want["losses"].items()}
-        loss_err = max(errs.values())
-        grad_err = _grad_errors(got["grads"], want["grads"])
-        bn_err = max((float((got["bn"][k] - v).abs().max() / max(float(v.abs().max()), 1e-30))
-                      for k, v in want["bn"].items()), default=0.0)
-        if ranks[1][preset]["losses"] != got["losses"]:
-            raise AssertionError(f"11b {preset}: the ranks' losses differ")
-        if sorted(got["losses"]) != sorted(want["losses"]) or max(
-                loss_err, grad_err, bn_err) > DP_TOL:
-            worst = sorted(errs, key=errs.get)[-5:]
-            raise AssertionError(f"11b {preset}: losses {loss_err}, gradients {grad_err}, "
-                                 f"BN statistics {bn_err} against batch 2; worst losses "
-                                 + ", ".join(f"{k} {got['losses'][k]} vs {want['losses'][k]}"
-                                             for k in worst))
+        want = ref[preset]
         if (preset == "repconvbngroundingdino") != bool(want["bn"]):
             raise AssertionError(f"11b {preset}: BatchNorm statistics {sorted(want['bn'])}")
-        result["11b"][preset] = {"loss_max_rel_err": loss_err, "grad_max_rel_err": grad_err,
-                                 "bn_stats_max_rel_err": bn_err if want["bn"] else None}
+        for how, (loss_tol, grad_tol) in (("own", (DP_TOL, DP_TOL)), ("pinned", DP_PINNED_TOL)):
+            got = ranks[0][preset][how]
+            halves = [(i, r[preset][how]) for i, r in enumerate(ranks)]
+            if ranks[1][preset][how]["losses"] != got["losses"]:
+                raise AssertionError(f"11b {preset} {how}: the ranks' losses differ")
+            if sorted(got["losses"]) != sorted(want["losses"]):
+                raise AssertionError(f"11b {preset} {how}: losses {sorted(got['losses'])}")
+            errs = {k: abs(got["losses"][k] - v) / max(abs(v), 1e-30)
+                    for k, v in want["losses"].items()}
+            grads = _grad_errors(got["grads"], want["grads"])
+            bn_err = max((float((got["bn"][k] - v).abs().max() / max(float(v.abs().max()),
+                                                                        1e-30))
+                          for k, v in want["bn"].items()), default=0.0)
+            # each rank's ZeroConvBN outputs against its image's at batch 2
+            conv_err = max((float((h["conv_out"][j][0] - w[i]).abs().max() / w[i].abs().max())
+                            for i, h in halves for j, w in enumerate(want["conv_out"])),
+                           default=0.0)
+            # the decoder's query slots given another encoder position than at
+            # batch 2, and the slots whose last hidden state is furthest off
+            reordered = sum(int((h["topk_idx"][0] != want["topk_idx"][i]).sum())
+                            for i, h in halves)
+            hs_err = [(h["hs_last"][0] - want["hs_last"][i]).abs().amax(-1)
+                      / want["hs_last"][i].abs().max() for i, h in halves]
+            # valid targets that a rank matched to other queries than batch 2
+            moved = sum(int(((h["assignments"] != want["assignments"][i::2])
+                             & batch["gt_valid"][i].cpu()).sum()) for i, h in halves)
+            rec = {"loss_max_rel_err": max(errs.values()), "worst_losses": _worst(errs),
+                   "grad_max_rel_err": max(grads.values()), "worst_grads": _worst(grads),
+                   "bn_stats_max_rel_err": bn_err if want["bn"] else None,
+                   "conv_bn_out_max_rel_err": conv_err if want["conv_out"] else None,
+                   "slots_reordered": reordered, "assignments_moved": moved,
+                   "worst_slots_per_image": [
+                       {int(q): float(e[q]) for q in e.argsort(descending=True)[:2]}
+                       for e in hs_err]}
+            if how == "pinned":
+                rec["local_num_boxes_total_rel_err"] = _local_num_boxes_err(
+                    [h["local"] for _, h in halves], want["losses"]["total_loss"])
+                if rec["local_num_boxes_total_rel_err"] <= DP_TOL:
+                    failed.append(f"{preset}: a local num_boxes would pass, "
+                                  f"{rec['local_num_boxes_total_rel_err']}")
+            result["11b"][f"{preset} {how}"] = rec
+            if (rec["loss_max_rel_err"] > loss_tol or rec["grad_max_rel_err"] > grad_tol
+                    or max(bn_err, conv_err) > DP_STATS_TOL):
+                failed.append(f"{preset} {how} (losses {loss_tol}, gradients {grad_tol}, "
+                              f"statistics {DP_STATS_TOL}): {rec}")
+    if failed:
+        log("11b steps: " + json.dumps(result["11b"]))
+        raise AssertionError("11b against batch 2: " + "; ".join(failed))
     result["11b"]["eval"] = _same_detections("11b eval", _images([r["evals"] for r in ranks]),
                                              ref_images, size)
     ap = {k: (ranks[0]["eval"][k], ref_eval[k]) for k in ("AP", "AP50", "AP75")}
@@ -3293,6 +3422,11 @@ def phase_data_parallel(build_model, optim, step, tokenizer_mod, transforms, pc,
         emas[0] += 1
         return ema_update(*a, **k)
 
+    # MultiSteps averages the calls' gradients, each call's losses divided by
+    # its own counts: halves of equal counts make that batch 2's step
+    batch = _dp_inputs(pc, tokenizer_mod, transforms, DP_CARD, (DP_CAPTIONS[0],) * 2,
+                       (DP_TARGETS[0],) * 2)
+    acc = {}
     for k, micro in ((2, [{n: v[i:i + 1] for n, v in batch.items()} for i in range(2)]),
                      (1, [batch])):
         model = _dp_model(build_model, optim, DP_PRESETS[0], DP_CARD)
@@ -3306,22 +3440,22 @@ def phase_data_parallel(build_model, optim, step, tokenizer_mod, transforms, pc,
                 step.train_step(model, opt, b)
         finally:
             optim.ema_update = ema_update
-        adamw_steps = {int(s["step"]) for s in opt.adamw.state.values()}
-        if (adamw_steps, opt.schedule.last_epoch, emas[0], lsap_cuda.launches - before) != (
-                {1}, 1, len(micro), len(micro)):
-            raise AssertionError(f"11c k={k}: AdamW steps {adamw_steps}, schedule "
-                                 f"{opt.schedule.last_epoch}, EMA updates {emas[0]}, lsap "
-                                 f"launches {lsap_cuda.launches - before} in {len(micro)} calls")
+        acc[f"k={k}"] = {
+            "calls": len(micro),
+            "adamw_steps": sorted({int(s["step"]) for s in opt.adamw.state.values()}),
+            "schedule_steps": opt.schedule.last_epoch, "ema_updates": emas[0],
+            "lsap_launches_per_call": (lsap_cuda.launches - before) / len(micro)}
+        if [acc[f"k={k}"][n] for n in ("adamw_steps", "schedule_steps", "ema_updates",
+                                        "lsap_launches_per_call")] != [[1], 1, len(micro), 1]:
+            raise AssertionError(f"11c k={k}: {acc[f'k={k}']}")
         updated[k] = {n: p.detach().float().cpu() for n, p in opt.params.items()}
         del model, opt
         torch.cuda.empty_cache()
-    acc_err = _grad_errors(updated[2], updated[1])
+    acc_err = max(_grad_errors(updated[2], updated[1]).values())
     moved = max(float((updated[2][n] - updated[1][n]).abs().max()) for n in updated[1])
     if acc_err > DP_TOL:
         raise AssertionError(f"11c: accumulated update off by {acc_err} of the tensors' scale")
-    result["11c"] = {"adamw_steps": 1, "schedule_steps": 1, "ema_updates": 2,
-                     "lsap_launches_per_call": 1, "param_max_rel_err": acc_err,
-                     "param_max_abs_diff": moved}
+    result["11c"] = {**acc, "param_max_rel_err": acc_err, "param_max_abs_diff": moved}
     result["phase_s"] = time.time() - t0
     shutil.rmtree(root, ignore_errors=True)
     return result
@@ -3582,7 +3716,8 @@ def main() -> int:
             "10c_steps": arch_launches["10c"]["steps"][0],
             "10c_finetune": arch_launches["10c"]["finetune"][0], "10d": arch_launches["10d"],
             "10e": arch_launches["10e"], "10f": arch_launches["10f"][0]},
-        "phase_11a_launches_per_step": DP_LAUNCHES[0],
+        "phase_11a_launches_per_step": data_parallel["11a"]["launches_per_step"][
+            "msda_forward"],
         "decoder": {k: dec[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
                                         "max_abs_err", "l2_gather_mb")},
         "decoder_timed_at": "decoder call, bf16 value, B=1 Q=900 S=20197 H=8 D=32 L=P=4",
@@ -3616,7 +3751,8 @@ def main() -> int:
             "10b_steps": arch_launches["10b"]["steps"][1:],
             "10c_steps": arch_launches["10c"]["steps"][1:],
             "10c_finetune": arch_launches["10c"]["finetune"][1], "10f": arch_launches["10f"][1:]},
-        "phase_11a_launches_per_step": DP_LAUNCHES[1],
+        "phase_11a_launches_per_step": data_parallel["11a"]["launches_per_step"][
+            "msda_backward"],
         "device_ms": benc["device_ms"],
         "launch_ms": benc["launch_ms"],
         "by_path": {f"{name} {path}": {k: v for k, v in r.items() if k != "bound_by"}
@@ -3648,8 +3784,10 @@ def main() -> int:
         "pet_train_launches": {k: v["lsap_launches"] for k, v in pet.items()},
         "phase_8b_launches": phase_8b_lsap,
         "phase_10_launches": phase_10_lsap,
-        "phase_11a_launches_per_step": DP_LAUNCHES[2],
-        "phase_11c_launches_per_call": 1,
+        "phase_11a_launches_per_step": data_parallel["11a"]["launches_per_step"]["lsap"],
+        "phase_11c_launches_per_call": {k: v["lsap_launches_per_call"]
+                                        for k, v in data_parallel["11c"].items()
+                                        if k.startswith("k=")},
     }]
     log("train_step: " + json.dumps({
         "warm_median_ms": step_ms, "peak_memory_gib": peak / 2**30,

@@ -243,24 +243,10 @@ class DataLoader:
                 yield fut.result()
 
     def _eval_iter(self):
-        n = len(self.ds)
-        if self.shard_count > 1:
-            yield from self._sharded_eval_iter()
-            return
-        for start in range(0, n, self.batch_size):
-            samples = [self._make_sample(i) for i in range(start, min(start + self.batch_size, n))]
-            real = len(samples)
-            while len(samples) < self.batch_size:
-                samples.append(samples[-1])
-            batch = collate(samples, [self.caption] * len(samples), self.tokenizer, self.cfg,
-                            self.max_text_len, self.max_categories, train=False)
-            batch["real_count"] = np.asarray(real, np.int32)
-            yield batch
-
-    def _sharded_eval_iter(self):
-        """This shard's slice of every global eval batch, the last one padded
-        with copies of the dataset's last sample (a slice of copies only
-        has `real_count` 0), at the global batch's bucket."""
+        """This shard's slice of every global eval batch (the whole batch in
+        one process), the last one padded with copies of the dataset's last
+        sample (a slice of copies only has `real_count` 0), at the global
+        batch's bucket."""
         n = len(self.ds)
         local = self.batch_size // self.shard_count
         lo = self.shard_rank * local

@@ -52,9 +52,6 @@ def make_mesh(data: int = -1, model: int = 1, seq: int = 1, pipe: int = 1):
 
 def add_mesh_args(ap: argparse.ArgumentParser, mesh_help: str) -> None:
     ap.add_argument("--mesh", default=None, help=mesh_help)
-    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
-                    help="the process group's backend (default: nccl on the card, gloo on "
-                         "the CPU)")
 
 
 def init_mesh(args: argparse.Namespace, batch_size: int):
@@ -77,7 +74,7 @@ def init_mesh(args: argparse.Namespace, batch_size: int):
     if batch_size % data:
         raise SystemExit(f"--batch-size {batch_size} must be divisible by the data axis {data}")
     joined = not dist.is_initialized()
-    device = dist.init_from_env(args.device, args.dist_backend)
+    device = dist.init_from_env(args.device)
     try:
         make_mesh(data=data)
     except ValueError as e:
