@@ -185,9 +185,30 @@ Phases, in order (any failure raises, and the script exits non-zero):
        one step at batch 2 (halves of equal counts): AdamW and the schedule
        step once, the EMA twice, the trainable tensors within DP_TOL of
        their scale, one `lsap` launch a call; a `phase 11: {...}` line.
-  Phases 5b, 6, 7c, 8 and 10 check one `lsap` launch and no host matcher
-  call (no copy of the costs to the host) per train step.
-  12. result: a `kernels` JSON line, the nvidia-smi line, and last
+  12. the replay's image hooks, few-shot, the other metrics and
+     `load_image`, from phase 6's seeded checkpoint and tasks under
+     `build/phase12` (removed after):
+     12a. `run_replay_phase` with `image_batch_fn` / `image_loss_fn` (the
+       reference's COCO-replay configuration), remat on: 3 iterations, an
+       800x1216 batch (4 categories, 5 boxes) on the first two and None on
+       the third, the driver's detection loss with dropout: 18
+       `msda_forward`, 12 `msda_backward` (6 binned) and 1 `lsap` launch
+       per image iteration, none in the text-only one; frozen tensors
+       bitwise unchanged, every adapter given a gradient and moved, the
+       merge held as phase 6's; the first image iteration again in f32
+       from the same state and generator seed, through the kernels and
+       through `ms_deform_attn_plain`: the total loss within
+       REPLAY_LOSS_TOL, the adapter gradients within REMAT_GRAD_TOL;
+     12b. the port's `write_fewshot_json` for both tasks, then
+       `train_odinw --shot 1shot`, 2 steps a task: the trained sets are
+       `fewshot_subset`'s, the report's keys, the launches;
+     12c. a task image through `utils.inference.load_image` and `predict`,
+       bitwise the `data.transforms` route; 12b's eval detections of the
+       first task scored by `VocMeanAP` and `LvisMeanAP` beside
+       `CocoMeanAP`, each finite and in [0, 1]; a `phase 12: {...}` line.
+  Phases 5b, 6, 7c, 8, 10 and 12 check one `lsap` launch and no host
+  matcher call (no copy of the costs to the host) per train step.
+  13. result: a `kernels` JSON line, the nvidia-smi line, and last
      `{"ok": true, "device": {...}}`.
 
 It needs a CUDA card and the repository's `ziragroundingdino_torch` package
@@ -1310,6 +1331,36 @@ def _merge_on_a_batch(build_model, root, out, tokenizer, cfg, dcfg):
     return {k: (_rel_err(after[k], before[k]), _rel_err(unmerged[k], before[k])) for k in before}
 
 
+def check_zira_merge(label: str, before: dict, trained: dict, merged: dict, cfg) -> float:
+    """Holds a merge of the ZiRa preset (`rep_merge`: `trained` -> `merged`,
+    state dicts): every non-ZiRa tensor as in `before`, bitwise; each freeze
+    tensor the trained freeze + scaling * branch within MERGE_TOL of its
+    scale; the branches and the scalings reset to the config's inits.
+    Returns the largest relative error of a freeze tensor."""
+    from ziragroundingdino_torch.models.zira import ZERO_VALUE
+
+    changed = [k for k, v in merged.items() if "adapter" not in k and not torch.equal(v, before[k])]
+    if changed:
+        raise AssertionError(f"{label} changed non-ZiRa tensors: {changed[:5]}")
+    merge_err = 0.0
+    for mod in ["rep_linear_adapter"] + [f"input_proj_conv_adapter.{i}" for i in range(4)]:
+        freeze = "freeze_linear" if mod == "rep_linear_adapter" else "freeze_conv"
+        s = trained[f"{mod}.scaling"]
+        for part in ("weight", "bias"):
+            want_f = trained[f"{mod}.{freeze}.{part}"] + s * trained[f"{mod}.{part}"]
+            err = float((merged[f"{mod}.{freeze}.{part}"] - want_f).abs().max()
+                        / max(1.0, float(want_f.abs().max())))
+            merge_err = max(merge_err, err)
+            if err > MERGE_TOL:
+                raise AssertionError(f"{label}: {mod}.{freeze}.{part} off by {err}")
+            if not torch.all(merged[f"{mod}.{part}"] == ZERO_VALUE):
+                raise AssertionError(f"{label}: {mod}.{part} not reset")
+        reset = cfg.zira_lan_scale if mod == "rep_linear_adapter" else cfg.zira_vis_scale
+        if not torch.all(merged[f"{mod}.scaling"] == reset):
+            raise AssertionError(f"{label}: {mod}.scaling not reset")
+    return merge_err
+
+
 def write_lifecycle_inputs(build_model, root: pathlib.Path):
     """Phase 6's inputs under `root` (made anew): the seeded reference-format
     checkpoint of the ZiRa preset with seeded branches and a prompt memory,
@@ -1364,7 +1415,6 @@ def phase_lifecycle(build_model, msda_forward, msda_backward, card_line):
     kernels' launches over the first run."""
     from ziragroundingdino_torch import config as pc
     from ziragroundingdino_torch.eval import evaluator
-    from ziragroundingdino_torch.models.zira import ZERO_VALUE
     from ziragroundingdino_torch.ops import msda
     from ziragroundingdino_torch.scripts import train_odinw
     from ziragroundingdino_torch.text.tokenizer import WordPieceTokenizer
@@ -1438,24 +1488,7 @@ def phase_lifecycle(build_model, msda_forward, msda_backward, card_line):
         trained = torch.load(out / name / "ckpt" / f"step_{LIFECYCLE_ITERS}.pt",
                              map_location="cpu", weights_only=True)["model"]
         params = final["params"]
-        changed = [k for k, v in params.items() if "adapter" not in k and not torch.equal(v, before[k])]
-        if changed:
-            raise AssertionError(f"task {name} changed non-ZiRa tensors: {changed[:5]}")
-        for mod in ["rep_linear_adapter"] + [f"input_proj_conv_adapter.{i}" for i in range(4)]:
-            freeze = "freeze_linear" if mod == "rep_linear_adapter" else "freeze_conv"
-            s = trained[f"{mod}.scaling"]
-            for part in ("weight", "bias"):
-                want_f = trained[f"{mod}.{freeze}.{part}"] + s * trained[f"{mod}.{part}"]
-                err = float((params[f"{mod}.{freeze}.{part}"] - want_f).abs().max()
-                            / max(1.0, float(want_f.abs().max())))
-                merge_err = max(merge_err, err)
-                if err > MERGE_TOL:
-                    raise AssertionError(f"task {name}: {mod}.{freeze}.{part} off by {err}")
-                if not torch.all(params[f"{mod}.{part}"] == ZERO_VALUE):
-                    raise AssertionError(f"task {name}: {mod}.{part} not reset")
-            reset = cfg.zira_lan_scale if mod == "rep_linear_adapter" else cfg.zira_vis_scale
-            if not torch.all(params[f"{mod}.scaling"] == reset):
-                raise AssertionError(f"task {name}: {mod}.scaling not reset")
+        merge_err = max(merge_err, check_zira_merge(f"task {name}", before, trained, params, cfg))
         for k, v in memory.items():
             if not torch.equal(final["prompt_memory"][k], v):
                 raise AssertionError(f"task {name}: the checkpoint's prompt {k} left the chain")
@@ -3461,6 +3494,326 @@ def phase_data_parallel(build_model, optim, step, tokenizer_mod, transforms, pc,
     return result
 
 
+# ---------------------------------------------------------------------------
+# 12. the replay's image hooks, few-shot, the other metrics, load_image
+# ---------------------------------------------------------------------------
+
+REPLAY_ITERS = 3  # 12a: replay iterations; the image hook gives a batch to the first two
+REPLAY_IMAGE_ITERS = 2
+REPLAY_CLASSES = ["person", "dog", "cat", "car"]  # 12a's image caption (5 seeded boxes)
+REPLAY_SEED = 12  # 12a's dropout generator
+REPLAY_LOSS_TOL = 1e-4  # 12a in f32, kernels against the plain MSDA: the total loss, relative
+FEWSHOT_ITERS = 2  # 12b: steps a task
+
+
+def _replay_images(root, memory, inference, optim, step, tokenizer_mod, transforms, pc,
+                   msda_forward, msda_backward, card_line) -> dict:
+    """12a: `run_replay_phase` with the image hooks on phase 6's seeded
+    checkpoint (the reference's COCO-replay configuration): REPLAY_ITERS
+    iterations, an 800x1216 image batch (REPLAY_CLASSES, 5 boxes) on the
+    first REPLAY_IMAGE_ITERS, None on the rest, the driver's detection loss
+    (`train.step.compute_losses`: the criterion, matched by `lsap`) with
+    dropout from a CUDA generator, remat on. Checks each iteration's
+    launches, the frozen tensors, the adapters' gradients and moves, and the
+    merge; then the first image iteration twice more in f32 from the same
+    state and generator seed, through the kernels and through
+    `ms_deform_attn_plain`."""
+    from ziragroundingdino_torch.models import transformer
+    from ziragroundingdino_torch.ops import msda
+    from ziragroundingdino_torch.train import incremental
+
+    def load(dtype):
+        return inference.load_model(str(root / "ckpt.pth"), str(root / "vocab.txt"),
+                                    preset="dualzerorepbranchgroundingdino", device="cuda",
+                                    dtype=dtype, **REMAT)
+
+    lm = load("bfloat16")
+    model, tok, cfg = lm.model, lm.tokenizer, lm.cfg
+    learned = [k.strip("-") for k in memory]  # the checkpoint's prompt memory
+    tb = tokenizer_mod.tokenize_captions(tok, [" . ".join(REPLAY_CLASSES) + " ."],
+                                         max_text_len=cfg.max_text_len,
+                                         max_categories=cfg.max_categories)
+    pixels, mask = synthetic_image(transforms, pc)
+    batch = train_batch(tb, pixels, mask, "cuda", n_labels=len(REPLAY_CLASSES))
+
+    # the replay's own trainable set, to hook the gradients of
+    optim.set_trainable(model, optim.ZIRA_TRAINABLE_PATTERNS, freeze_all=True)
+    trainable = {n for n, p in model.named_parameters() if p.requires_grad}
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    marks, times, trained = [], [], {}
+    peaks = {n: [] for n in trainable}  # (iteration, max |grad|) of each backward
+    hooks = [p.register_post_accumulate_grad_hook(
+        lambda p, n=n: peaks[n].append((len(marks) - 1, p.grad.detach().abs().amax())))
+        for n, p in model.named_parameters() if n in trainable]
+
+    def mark():
+        torch.cuda.synchronize()
+        times.append(time.perf_counter())
+        marks.append((msda_forward.launches, msda_backward.launches,
+                      msda_backward.binned_launches, matcher_counts()[0]))
+
+    given = iter([batch] * REPLAY_IMAGE_ITERS)
+
+    def image_batch_fn():
+        mark()
+        return next(given, None)
+
+    gen = torch.Generator(device="cuda").manual_seed(REPLAY_SEED)
+    rep_merge = incremental.rep_merge
+
+    def merge(m, *a, **k):
+        mark()
+        trained.update({n: t.detach().clone() for n, t in m.state_dict().items()})
+        return rep_merge(m, *a, **k)
+
+    state = incremental.IncrementalState(params=incremental.snapshot(model),
+                                         prompt_memory=dict(lm.prompt_memory),
+                                         learned_classes=learned)
+    incremental.rep_merge = merge
+    torch.cuda.reset_peak_memory_stats()
+    msda_forward.launches = msda_backward.launches = msda_backward.binned_launches = 0
+    try:
+        state = incremental.run_replay_phase(
+            state, model, tok, iters=REPLAY_ITERS, image_batch_fn=image_batch_fn,
+            image_loss_fn=lambda m, b: step.compute_losses(m, b, gen)[0])
+    finally:
+        incremental.rep_merge = rep_merge
+        for h in hooks:
+            h.remove()
+    peak = torch.cuda.max_memory_allocated()
+    per_iter = [[b - a for a, b in zip(marks[i], marks[i + 1])] for i in range(REPLAY_ITERS)]
+    iter_ms = [(times[i + 1] - times[i]) * 1e3 for i in range(REPLAY_ITERS)]
+    n_layers, n_enc = cfg.enc_layers + cfg.dec_layers, cfg.enc_layers
+    image_iter = [n_layers + n_enc, n_layers, n_enc, 1]  # remat recomputes the encoder's 6
+    want = [image_iter] * REPLAY_IMAGE_ITERS + [[0, 0, 0, 0]] * (REPLAY_ITERS - REPLAY_IMAGE_ITERS)
+    log(f"12a: replay iterations in {[round(x, 2) for x in iter_ms]} ms, launches "
+        f"(msda_forward, msda_backward, binned, lsap) per iteration {per_iter}, peak "
+        f"{peak / 2**30:.2f} GiB; on {card_line}")
+    if per_iter != want:
+        raise AssertionError(f"12a launches per iteration {per_iter}, not {want}")
+
+    grads = {n: max((float(g) for it, g in v if it < REPLAY_IMAGE_ITERS), default=0.0)
+             for n, v in peaks.items()}
+    frozen_changed = [k for k in before if k not in trainable and not torch.equal(before[k],
+                                                                                  trained[k])]
+    unmoved = [n for n in trainable if torch.equal(before[n], trained[n])]
+    ungraded = sorted(n for n, g in grads.items() if not g > 0)
+    if frozen_changed:
+        raise AssertionError(f"12a: frozen tensors changed: {frozen_changed[:5]}")
+    if ungraded or unmoved:
+        raise AssertionError(f"12a: adapters without a gradient {ungraded[:5]}, unmoved "
+                             f"{unmoved[:5]}")
+    merge_err = check_zira_merge("12a", trained, trained, state.params, cfg)
+    del model, lm, state, trained, before
+    torch.cuda.empty_cache()
+
+    # the first image iteration in f32, through the kernels and through the plain MSDA
+    lm = load("float32")
+    model = lm.model
+    optim.set_trainable(model, optim.ZIRA_TRAINABLE_PATTERNS, freeze_all=True)
+
+    def first_iteration():
+        model.zero_grad(set_to_none=True)
+        g = torch.Generator(device="cuda").manual_seed(REPLAY_SEED)
+        losses = incremental.replay_memory_loss(model, tok, learned, lm.prompt_memory,
+                                                cfg.max_text_len)
+        total = sum(losses.values()) + step.compute_losses(model, batch, g)[0]
+        total.backward()
+        return total.item(), {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                              if p.requires_grad}
+
+    kernel_loss, kernel_grads = first_iteration()
+    plain_calls = [0]
+
+    def plain(*a):
+        plain_calls[0] += 1
+        return msda.ms_deform_attn_plain(*a)
+
+    launched = msda_forward.launches
+    transformer.ms_deform_attn = plain
+    try:
+        plain_loss, plain_grads = first_iteration()
+    finally:
+        transformer.ms_deform_attn = msda.ms_deform_attn
+    if msda_forward.launches != launched or plain_calls[0] != n_layers + n_enc:
+        raise AssertionError(f"12a plain run: {plain_calls[0]} plain calls, "
+                             f"{msda_forward.launches - launched} kernel launches")
+    loss_err = abs(kernel_loss - plain_loss) / abs(plain_loss)
+    grad_err = {n: float((kernel_grads[n] - g).abs().max() / g.abs().max().clamp(min=1e-30))
+                for n, g in plain_grads.items()}
+    worst = max(grad_err.values())
+    log(f"12a in f32, kernels vs plain MSDA: total loss {kernel_loss:.6f} vs {plain_loss:.6f} "
+        f"({loss_err:.2e} relative), adapter gradients within {worst:.2e} of their scale")
+    if not loss_err <= REPLAY_LOSS_TOL or not worst <= REMAT_GRAD_TOL:
+        raise AssertionError(f"12a: f32 kernels vs plain: loss {loss_err}, gradients "
+                             f"{sorted(grad_err.items(), key=lambda x: -x[1])[:3]}")
+    del model, lm
+    torch.cuda.empty_cache()
+    return {"iteration_ms": iter_ms, "launches_per_iteration": per_iter,
+            "peak_memory_gib": peak / 2**30, "adapters": len(trainable),
+            "merge_f32_max_rel_err": merge_err, "f32_total_loss_kernels_plain": [
+                kernel_loss, plain_loss], "f32_loss_rel_err": loss_err,
+            "f32_grad_max_rel_err": worst}
+
+
+def _layers(root) -> tuple:
+    """(deformable layers, encoder layers) of the model phase 6's overrides
+    under `root` build."""
+    from ziragroundingdino_torch import config as pc
+
+    cfg = pc.get_model_config("dualzerorepbranchgroundingdino",
+                              **pc.load_config_overrides(str(root / "overrides.json"))[0])
+    return cfg.enc_layers + cfg.dec_layers, cfg.enc_layers
+
+
+class _RecordingMeanAP:
+    """Stands in for `eval.evaluator.CocoMeanAP`: the evaluator's class,
+    keeping each instance, whose entries then feed the other metrics."""
+
+    def __init__(self, cls):
+        self.cls, self.made = cls, []
+
+    def __call__(self, *a, **k):
+        ev = self.cls(*a, **k)
+        self.made.append(ev)
+        return ev
+
+
+def _fewshot_driver(root, card_line, msda_forward, msda_backward) -> tuple:
+    """12b: the port's `write_fewshot_json` writes
+    `fewshot_train_shot1_seed3.json` for phase 6's two tasks, then
+    `train_odinw --shot 1shot` trains FEWSHOT_ITERS steps a task on them
+    (remat on), merges and evaluates both. Checks the trained sets' image
+    counts against `fewshot_subset`'s, the report's keys and the launches.
+    Returns (the numbers, the first task's eval entries)."""
+    from ziragroundingdino_torch.data import fewshot, odinw
+    from ziragroundingdino_torch.data import loader as loader_mod
+    from ziragroundingdino_torch.eval import evaluator
+    from ziragroundingdino_torch.scripts import train_odinw
+
+    want_sizes, paths = [], []
+    for name in LIFECYCLE_TASKS:
+        task = odinw.get_odinw_task(name, str(root / "data"))
+        full = task.load_train()
+        paths.append(fewshot.write_fewshot_json(full, task.train_root, shots=1))
+        want_sizes.append(len(fewshot.fewshot_subset(full, 1)))
+    sizes, real_loader = [], loader_mod.DataLoader
+
+    def data_loader(ds, *a, train=False, **k):
+        if train:
+            sizes.append(len(ds))
+        return real_loader(ds, *a, train=train, **k)
+
+    recording = _RecordingMeanAP(evaluator.CocoMeanAP)
+    loader_mod.DataLoader, evaluator.CocoMeanAP = data_loader, recording
+    args = lifecycle_args(root, root / "fewshot", FEWSHOT_ITERS, FEWSHOT_ITERS, 0) + [
+        "--shot", "1shot"]
+    msda_forward.launches = msda_backward.launches = msda_backward.binned_launches = 0
+    matched = matcher_counts()
+    t = time.perf_counter()
+    try:
+        report = train_odinw.main(args)
+        torch.cuda.synchronize()
+    finally:
+        loader_mod.DataLoader, evaluator.CocoMeanAP = real_loader, recording.cls
+    run_s = time.perf_counter() - t
+    launches = (msda_forward.launches, msda_backward.launches, msda_backward.binned_launches,
+                matcher_counts()[0] - matched[0])
+    if matcher_counts()[1] != matched[1]:
+        raise AssertionError("12b called the host matcher")
+    steps = FEWSHOT_ITERS * len(LIFECYCLE_TASKS)
+    batches = sum(-(-n_test // LIFECYCLE_BATCH) for _, _, n_test in LIFECYCLE_TASKS.values())
+    n_layers, n_enc = _layers(root)
+    want = ((n_layers + n_enc) * steps + n_layers * batches, n_layers * steps, n_enc * steps,
+            steps)  # the driver trains with remat: the encoder's layers run twice a step
+    log(f"12b: train_odinw --shot 1shot in {run_s:.1f} s: trained sets of {sizes} images "
+        f"(fewshot_subset: {want_sizes}, of {[n for _, n, _ in LIFECYCLE_TASKS.values()]}), "
+        f"launches (msda_forward, msda_backward, binned, lsap) {launches}, report {report}")
+    if sizes != want_sizes:
+        raise AssertionError(f"12b trained on {sizes} images, not fewshot_subset's {want_sizes}")
+    keys = {f"AP/{n}" for n in LIFECYCLE_TASKS} | {"avg_AP"}
+    if set(report) != keys or not all(np.isfinite(v) for v in report.values()):
+        raise AssertionError(f"12b report {report}")
+    if launches != want:
+        raise AssertionError(f"12b launches {launches}, not {want}")
+    first = next(iter(LIFECYCLE_TASKS))
+    evals = [ev for ev in recording.made if ev.num_classes == len(LIFECYCLE_TASKS[first][0])]
+    return {"run_s": run_s, "trained_images": sizes, "fewshot_subset_images": want_sizes,
+            "json": [pathlib.Path(p).name for p in paths], "launches": launches,
+            "report": report}, evals[0]
+
+
+def _load_image_and_metrics(root, coco_eval, inference, transforms, msda_forward,
+                            card_line) -> dict:
+    """12c: a task image through `utils.inference.load_image` and
+    `predict` on the card, bitwise against the `data.transforms` route;
+    the first task's eval detections of 12b scored by `VocMeanAP` and
+    `LvisMeanAP` (every category common, no negatives) beside `CocoMeanAP`."""
+    from ziragroundingdino_torch.data import odinw
+    from ziragroundingdino_torch.eval.lvis_map import LvisMeanAP
+    from ziragroundingdino_torch.eval.voc_map import VocMeanAP
+
+    first = next(iter(LIFECYCLE_TASKS))
+    path = pathlib.Path(odinw.get_odinw_task(first, str(root / "data")).test_root) / "0.ppm"
+    src, (pixels, mask), size = inference.load_image(str(path))
+    tsrc, (tpixels, tmask), tsize = transforms.load_image(str(path))
+    if not (np.array_equal(src, tsrc) and np.array_equal(pixels, tpixels)
+            and np.array_equal(mask, tmask) and tuple(size) == tuple(tsize)):
+        raise AssertionError("12c: utils.inference.load_image differs from data.transforms'")
+    lm = inference.load_model(str(root / "ckpt.pth"), str(root / "vocab.txt"),
+                              preset="dualzerorepbranchgroundingdino", device="cuda",
+                              dtype="bfloat16")
+    caption = " . ".join(LIFECYCLE_TASKS[first][0]) + " ."
+    msda_forward.launches = 0
+    got = inference.predict(lm, pixels, mask, caption, box_threshold=0.0)
+    want = inference.predict(lm, tpixels, tmask, caption, box_threshold=0.0)
+    launches = msda_forward.launches
+    if not (all(np.array_equal(a, b) for a, b in zip(got[:2], want[:2])) and got[2] == want[2]):
+        raise AssertionError("12c: predict on load_image's arrays differs")
+    if launches != 2 * _layers(root)[0] or not len(got[0]):
+        raise AssertionError(f"12c: {launches} msda_forward launches for 2 requests, "
+                             f"{len(got[0])} boxes")
+    del lm
+    torch.cuda.empty_cache()
+
+    n = coco_eval.num_classes
+    voc, lvis = VocMeanAP(num_classes=n), LvisMeanAP(num_classes=n, category_frequency=["c"] * n)
+    for image_id, db, ds, dl, gb, gl, *_ in coco_eval.entries:
+        voc.add(image_id, db, ds, dl, gb, gl)
+        lvis.add(image_id, db, ds, dl, gb, gl)
+        lvis.add_image_meta(image_id, [], [])
+    lvis_res = lvis.summarize()
+    scores = {"coco_AP": coco_eval.summarize()["AP"] / 100, "voc_mAP": voc.summarize()["mAP"] / 100,
+              "lvis_AP": lvis_res["AP"] / 100, "lvis_APc": lvis_res["APc"] / 100}
+    log(f"12c: load_image {tuple(size)} in bucket {tuple(pixels.shape[1:3])}, predict bitwise "
+        f"the data.transforms route ({len(got[0])} boxes, {launches} msda_forward launches); "
+        f"task {first}'s {len(coco_eval.entries)} eval images: {scores} (random weights: the "
+        f"path runs, the AP means nothing)")
+    if not all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in scores.values()):
+        raise AssertionError(f"12c metrics {scores}")
+    return {"image": str(path.name), "size": list(size), "boxes": len(got[0]),
+            "launches": launches, "metrics": scores}
+
+
+def phase_replay_and_metrics(build_model, inference, optim, step, tokenizer_mod, transforms, pc,
+                             msda_forward, msda_backward, card_line) -> dict:
+    """Phase 12 under `build/phase12` (removed after): phase 6's seeded
+    checkpoint and tasks, then 12a, 12b and 12c."""
+    root = pathlib.Path(__file__).resolve().parent / "build" / "phase12"
+    t0 = time.time()
+    _, memory, _ = write_lifecycle_inputs(build_model, root)
+    inputs_s = time.time() - t0
+    result = {"inputs_s": inputs_s, "card": card_line}
+    result["12a"] = _replay_images(root, memory, inference, optim, step, tokenizer_mod,
+                                   transforms, pc, msda_forward, msda_backward, card_line)
+    result["12b"], coco_eval = _fewshot_driver(root, card_line, msda_forward, msda_backward)
+    result["12c"] = _load_image_and_metrics(root, coco_eval, inference, transforms,
+                                            msda_forward, card_line)
+    result["phase_s"] = time.time() - t0
+    shutil.rmtree(root, ignore_errors=True)
+    return result
+
+
 def _merged_ms(intervals) -> float:
     """Length of the union of (start, end) intervals in microseconds, in ms."""
     total, end = 0.0, float("-inf")
@@ -3570,6 +3923,8 @@ def main() -> int:
     parser.add_argument("--phase11-worker", choices=["a", "b"], default=None,
                         help=argparse.SUPPRESS)  # a rank of phase 11, started by run_ranks
     parser.add_argument("--phase11-root", type=pathlib.Path, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--phase12", action="store_true",
+                        help="build the kernels and run phase 12 alone (no result line)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3607,6 +3962,12 @@ def main() -> int:
     for name in cuda_build.sources():
         if not check_ptxas(name, cuda_build.log_path(name).read_text()):
             raise AssertionError(f"no ptxas report for {name}.cu")
+    if args.phase12:
+        count_scipy_calls(matcher)
+        log("phase 12: " + json.dumps(phase_replay_and_metrics(
+            build_model, inference, optim, step, tokenizer_mod, transforms, pc, msda_forward,
+            msda_backward, card_line)))
+        return 0
 
     # 3. kernels vs plain
     rec = phase_kernels(msda_forward, ms_deform_attn_plain)
@@ -3675,6 +4036,13 @@ def main() -> int:
     # 11. data parallelism: --mesh over NCCL, two ranks on the card, accumulation
     data_parallel = phase_data_parallel(build_model, optim, step, tokenizer_mod,
                                         transforms, pc, msda_forward, msda_backward, card_line)
+    torch.cuda.empty_cache()
+
+    # 12. the replay's image hooks, few-shot, VOC/LVIS mAP and load_image
+    replay = phase_replay_and_metrics(build_model, inference, optim, step, tokenizer_mod,
+                                      transforms, pc, msda_forward, msda_backward, card_line)
+    phase_12 = {"12a_per_iteration": replay["12a"]["launches_per_iteration"],
+                "12b": replay["12b"]["launches"], "12c": replay["12c"]["launches"]}
 
     # result
     enc, dec = rec["encoder"], rec["decoder"]
@@ -3718,6 +4086,9 @@ def main() -> int:
             "10e": arch_launches["10e"], "10f": arch_launches["10f"][0]},
         "phase_11a_launches_per_step": data_parallel["11a"]["launches_per_step"][
             "msda_forward"],
+        "phase_12_launches": {"12a_per_iteration": [it[0] for it in
+                                                    phase_12["12a_per_iteration"]],
+                              "12b": phase_12["12b"][0], "12c": phase_12["12c"]},
         "decoder": {k: dec[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
                                         "max_abs_err", "l2_gather_mb")},
         "decoder_timed_at": "decoder call, bf16 value, B=1 Q=900 S=20197 H=8 D=32 L=P=4",
@@ -3753,6 +4124,11 @@ def main() -> int:
             "10c_finetune": arch_launches["10c"]["finetune"][1], "10f": arch_launches["10f"][1:]},
         "phase_11a_launches_per_step": data_parallel["11a"]["launches_per_step"][
             "msda_backward"],
+        "phase_12_launches": {"12a_per_iteration": [it[1] for it in
+                                                    phase_12["12a_per_iteration"]],
+                              "12a_binned_per_iteration": [it[2] for it in
+                                                           phase_12["12a_per_iteration"]],
+                              "12b": phase_12["12b"][1], "12b_binned": phase_12["12b"][2]},
         "device_ms": benc["device_ms"],
         "launch_ms": benc["launch_ms"],
         "by_path": {f"{name} {path}": {k: v for k, v in r.items() if k != "bound_by"}
@@ -3788,6 +4164,9 @@ def main() -> int:
         "phase_11c_launches_per_call": {k: v["lsap_launches_per_call"]
                                         for k, v in data_parallel["11c"].items()
                                         if k.startswith("k=")},
+        "phase_12_launches": {"12a_per_iteration": [it[3] for it in
+                                                    phase_12["12a_per_iteration"]],
+                              "12b": phase_12["12b"][3]},
     }]
     log("train_step: " + json.dumps({
         "warm_median_ms": step_ms, "peak_memory_gib": peak / 2**30,
@@ -3818,6 +4197,13 @@ def main() -> int:
               f"{len(LIFECYCLE_TASKS)} tasks x {DP_ITERS} steps at batch {LIFECYCLE_BATCH}, "
               "remat on, against the plain run; 11b: 2 ranks on one card over gloo, "
               "global batch 2; 11c: batch_size_scale 2 over two images"}))
+    log("phase 12: " + json.dumps({
+        **replay,
+        "at": "dualzerorepbranchgroundingdino, Swin-T, 800x1216, remat on; 12a bf16 (f32 for "
+              f"the kernels-vs-plain rerun), {REPLAY_ITERS} replay iterations, an image batch "
+              f"on {REPLAY_IMAGE_ITERS} ({len(REPLAY_CLASSES)} categories, 5 boxes); 12b "
+              f"train_odinw --shot 1shot, {len(LIFECYCLE_TASKS)} tasks x {FEWSHOT_ITERS} steps "
+              f"at batch {LIFECYCLE_BATCH}; 12c one request twice, and the first task's eval"}))
     log(json.dumps({"kernels": kernels}))
     log(card_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

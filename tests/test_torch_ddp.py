@@ -1,6 +1,6 @@
 """The port's data parallelism on the CPU: two gloo ranks, started by
 `torch.multiprocessing.spawn` on a free local port (one spawn per test, every
-case of the test inside it), against the JAX package's one-device step and
+case of the test inside it; their jobs are in `tests/torch_ranks.py`), against the JAX package's one-device step and
 eval at the global batch, f32, tiny config, from numpy seeds.
 
 * (a) A 2-rank DDP step (`train.step.wrap_ddp` + `train_step`) at global
@@ -34,8 +34,6 @@ import io
 import json
 import logging
 import os
-import socket
-import tempfile
 
 import jax
 import numpy as np
@@ -45,12 +43,20 @@ import torch
 from tests.common import tiny_tokenizer
 from tests.test_torch_pet import preset_overrides
 from tests.torch_common import TinyPair, port_config
+from tests.torch_ranks import (
+    EVAL_DATA,
+    SELECT_K,
+    free_port,
+    job_eval,
+    job_step,
+    job_train_odinw,
+    port_eval,
+    run_ranks,
+)
 from ziragroundingdino_torch.models import build_model
 from ziragroundingdino_torch.parallel import dist as pdist
 from ziragroundingdino_torch.parallel import mesh as pmesh
-from ziragroundingdino_torch.train import criterion as pcrit
 from ziragroundingdino_torch.train import optim as poptim
-from ziragroundingdino_torch.train import step as pstep
 from ziragroundingdino_torch.weights import jax_params_to_state_dict
 
 LOSS_TOL = 1e-5  # the global losses, relative: f32 rounding through the tiny model
@@ -70,33 +76,6 @@ PRESETS = (("dualzerorepbranchgroundingdino", {}), ("repconvbngroundingdino", {}
 # ---------------------------------------------------------------------------
 # ranks
 # ---------------------------------------------------------------------------
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def _rank_entry(rank, world, port, out_dir, job, args):
-    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
-                      WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
-    torch.set_num_threads(2)
-    pdist.init_from_env("cpu")
-    try:
-        torch.save(job(rank, *args), os.path.join(out_dir, f"rank{rank}.pt"))
-    finally:
-        pdist.destroy()
-
-
-def run_ranks(job, *args, world: int = 2):
-    """[job(rank, *args) for each rank], each rank a spawned process in one
-    gloo group."""
-    with tempfile.TemporaryDirectory() as d:
-        torch.multiprocessing.spawn(_rank_entry, args=(world, _free_port(), d, job, args),
-                                    nprocs=world, join=True)
-        return [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)
-                for r in range(world)]
 
 
 # ---------------------------------------------------------------------------
@@ -139,43 +118,6 @@ def _jax_step(preset, overrides):
     return case, {k: float(v) for k, v in losses.items()}, want
 
 
-class _GradRecorder:
-    """An optimizer for `train_step` that keeps the gradients it is given."""
-
-    def __init__(self, model):
-        self.params = {n: p for n, p in model.named_parameters() if p.requires_grad}
-        self.grads = None
-
-    def will_update(self):
-        return True
-
-    def step(self):
-        self.grads = {n: None if p.grad is None else p.grad.clone()
-                      for n, p in self.params.items()}
-        for p in self.params.values():
-            p.grad = None
-        return torch.zeros(())
-
-
-def _job_step(rank, cases):
-    """Each case's DDP step on this rank's image, the matcher pinned to
-    JAX's assignments of that image: {preset: (global losses, gradients)}."""
-    out = {}
-    for preset, pcfg, sd, batch, assignments in cases:
-        model = build_model(pcfg, device="cpu", dtype="float32")
-        model.load_state_dict(sd)
-        poptim.set_trainable(model, poptim.trainable_patterns_for_cfg(pcfg),
-                             freeze_all=pcfg.freeze_all)
-        net = pstep.wrap_ddp(model)
-        local = {k: torch.from_numpy(v[rank:rank + 1]).clone() for k, v in batch.items()}
-        rows = torch.from_numpy(np.concatenate([a[rank:rank + 1] for a in assignments])).long()
-        pcrit.match_batch = lambda *a, **k: rows
-        rec = _GradRecorder(model)
-        metrics = pstep.train_step(net, rec, local)
-        out[preset] = ({k: v.item() for k, v in metrics.items() if k != "grad_norm"}, rec.grads)
-    return out
-
-
 def test_ddp_step_matches_jax_at_the_global_batch():
     """(a): per preset, the global losses at LOSS_TOL relative and every
     trainable gradient at STEP_TOL of its scale against JAX's batch-2 step;
@@ -184,7 +126,7 @@ def test_ddp_step_matches_jax_at_the_global_batch():
     branch conv biases, 0 in exact arithmetic, are held at ZERO_GRAD_TOL of
     their weight gradient's scale; both ranks hold the same gradients."""
     refs = {p: _jax_step(p, ov) for p, ov in PRESETS}
-    ranks = run_ranks(_job_step, [refs[p][0] for p, _ in PRESETS])
+    ranks = run_ranks(job_step, [refs[p][0] for p, _ in PRESETS])
     for preset, _ in PRESETS:
         _, want_losses, want = refs[preset]
         losses, grads = ranks[0][preset]
@@ -328,10 +270,7 @@ def test_accumulation_resumes_bitwise_between_updates():
 # (c) the sharded eval
 # ---------------------------------------------------------------------------
 
-EVAL_DATA = dict(train_short_sides=(64, 96), max_size=160, test_short_side=96,
-                 shape_buckets=((96, 128), (128, 160), (160, 224)), max_boxes=10, num_workers=0)
 EVAL_SIZES = ((96, 128), (64, 96), (128, 96))  # eval buckets (96,128), (128,160), (128,160)
-SELECT_K = 10
 
 
 def _eval_split(root):
@@ -354,50 +293,6 @@ def _eval_split(root):
         json.dump({"images": images, "annotations": anns,
                    "categories": [{"id": 1, "name": "cat"}, {"id": 2, "name": "dog"}]}, f)
     return path
-
-
-def _port_eval(model, json_path, root, record=None):
-    """The port's `inference_on_dataset` over the split at batch 2 (sharded
-    by the process group, where there is one); `record` gets each batch's
-    real detections."""
-    from ziragroundingdino_torch.config import DataConfig
-    from ziragroundingdino_torch.data.coco import CocoDataset
-    from ziragroundingdino_torch.data.loader import DataLoader
-    from ziragroundingdino_torch.eval import evaluator
-    from ziragroundingdino_torch.text.tokenizer import WordPieceTokenizer
-
-    ds = CocoDataset.from_json(json_path, root)
-    loader = DataLoader(ds, WordPieceTokenizer(tiny_tokenizer().vocab), DataConfig(**EVAL_DATA),
-                        batch_size=2, train=False, max_text_len=32, max_categories=8)
-    fn = evaluator.make_inference_fn(model, select_k=SELECT_K)
-
-    def recording(batch):
-        det = fn(batch)
-        if record is not None:
-            record.append({k: v.numpy() for k, v in det.items()})
-        return det
-
-    batches = []
-
-    def counted():
-        for b in loader:
-            batches.append(int(b["real_count"]))
-            yield b
-
-    res = evaluator.inference_on_dataset(counted(), recording, num_classes=2, num_warmup=0,
-                                         class_names=ds.category_names)
-    return res, batches
-
-
-def _job_eval(rank, pcfg, sd, json_path, root, script_args):
-    model = build_model(pcfg, device="cpu", dtype="float32")
-    model.load_state_dict(sd)
-    record = []
-    res, reals = _port_eval(model, json_path, root, record)
-    from ziragroundingdino_torch.scripts import eval_coco
-
-    by_script = eval_coco.main(script_args + ["--mesh", "2"])
-    return res, reals, record, by_script
 
 
 def _same_metrics(got, want, keys=None):
@@ -438,7 +333,8 @@ def test_sharded_eval_matches_jax_and_one_process(tmp_path):
     one = build_model(pcfg, device="cpu", dtype="float32")
     one.load_state_dict(sd)
     record_one = []
-    res_one, reals_one = _port_eval(one, json_path, str(tmp_path), record_one)
+    res_one, reals_one = port_eval(one, json_path, str(tmp_path), tiny_tokenizer().vocab,
+                                   record_one)
     assert reals_one == [2, 1]
 
     # JAX on the one-process loader's batches
@@ -463,7 +359,8 @@ def test_sharded_eval_matches_jax_and_one_process(tmp_path):
                                          jax_recording, num_classes=2, num_warmup=0,
                                          class_names=ds.category_names)
 
-    ranks = run_ranks(_job_eval, pcfg, sd, json_path, str(tmp_path), script_args)
+    ranks = run_ranks(job_eval, pcfg, sd, json_path, str(tmp_path), tiny_tokenizer().vocab,
+                      script_args)
     assert [r[1] for r in ranks] == [[1, 1], [1, 0]]
     for r in ranks:
         _same_metrics(r[0], res_one)
@@ -504,12 +401,6 @@ def _model_overrides(pcfg):
 # ---------------------------------------------------------------------------
 
 
-def _job_train_odinw(rank, args):
-    from ziragroundingdino_torch.scripts import train_odinw
-
-    return train_odinw.main(args + ["--mesh", "2"])
-
-
 def test_train_odinw_mesh2_matches_mesh1(tmp_path, monkeypatch):
     """(d): `train_odinw` on two synthetic tasks, 1 step a task at global batch
     2, the replay and the sharded eval, with dropout off and one image
@@ -539,9 +430,9 @@ def test_train_odinw_mesh2_matches_mesh1(tmp_path, monkeypatch):
                 "--checkpoint-period", "1", "--replay-iters", "1",
                 "--config-overrides", str(ov), "--device", "cpu"]
 
-    reports = run_ranks(_job_train_odinw, args("mesh2"))
+    reports = run_ranks(job_train_odinw, args("mesh2"))
     monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
-    monkeypatch.setenv("MASTER_PORT", str(_free_port()))
+    monkeypatch.setenv("MASTER_PORT", str(free_port()))
     for k in ("RANK", "LOCAL_RANK"):
         monkeypatch.setenv(k, "0")
     monkeypatch.setenv("WORLD_SIZE", "1")
@@ -605,7 +496,7 @@ def test_one_process_is_the_identity():
 
 def test_make_mesh_and_the_scripts_refuse_what_is_not_ported(tmp_path, monkeypatch):
     """`make_mesh` names the launch it expected and refuses the model, seq
-    and pipe axes (ROADMAP Queue 1 item 10); the scripts exit with those
+    and pipe axes (ROADMAP Queue 1 item 6); the scripts exit with those
     messages, not a traceback."""
     from ziragroundingdino_torch.scripts import eval_coco, train_odinw
 
@@ -613,7 +504,7 @@ def test_make_mesh_and_the_scripts_refuse_what_is_not_ported(tmp_path, monkeypat
     with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         pmesh.make_mesh(2)
     for kw in (dict(model=2), dict(seq=2), dict(pipe=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
             pmesh.make_mesh(1, **kw)
     assert pmesh.parse_mesh("4") == (4, 1, 1) and pmesh.parse_mesh("2,2,1") == (2, 2, 1)
     for bad in ("0", "1,2,3,4", "a"):
@@ -623,9 +514,9 @@ def test_make_mesh_and_the_scripts_refuse_what_is_not_ported(tmp_path, monkeypat
     monkeypatch.delenv("WORLD_SIZE", raising=False)
     common = ["--checkpoint", "x.pth", "--vocab", "v.txt", "--device", "cpu"]
     train = common + ["--output-dir", str(tmp_path), "--batch-size", "2"]
-    with pytest.raises(SystemExit, match="ROADMAP Queue 1 item 10"):
+    with pytest.raises(SystemExit, match="ROADMAP Queue 1 item 6"):
         train_odinw.main(train + ["--mesh", "1,2"])
-    with pytest.raises(SystemExit, match="ROADMAP Queue 1 item 10"):
+    with pytest.raises(SystemExit, match="ROADMAP Queue 1 item 6"):
         eval_coco.main(common + ["--json", "a.json", "--image-root", ".", "--mesh", "2,1,2"])
     with pytest.raises(SystemExit, match="torchrun --nproc-per-node 2"):
         train_odinw.main(train + ["--mesh", "2"])
@@ -633,12 +524,12 @@ def test_make_mesh_and_the_scripts_refuse_what_is_not_ported(tmp_path, monkeypat
     with pytest.raises(SystemExit, match="divisible by the data axis 4"):
         train_odinw.main(train + ["--batch-size", "2", "--mesh", "4"])
     monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
-    monkeypatch.setenv("MASTER_PORT", str(_free_port()))
+    monkeypatch.setenv("MASTER_PORT", str(free_port()))
     monkeypatch.setenv("RANK", "0")
     with pytest.raises(SystemExit, match="torchrun --nproc-per-node 2"):
         eval_coco.main(common + ["--json", "a.json", "--image-root", ".", "--mesh", "2"])
     assert not pdist.is_initialized()
-    assert "item 10" in train_odinw.LEFT_OUT
+    assert "item 6" in train_odinw.LEFT_OUT
 
 
 def test_rank_generators_and_the_eval_hook(tmp_path):

@@ -29,7 +29,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_common import TinyPair, assert_close, random_params, torch_text
+from tests.torch_common import TinyPair, architecture, assert_close, random_params, torch_text
 from ziragroundingdino_torch.models import adapters as padapters
 from ziragroundingdino_torch.models.heads import ContrastiveEmbed
 from ziragroundingdino_torch.models.moe import MoE
@@ -300,12 +300,20 @@ def enc_logits(tp, inter):
     return inter[head]["__call__"][0]
 
 
+# JAX's jitted train-mode forward by architecture: the presets that differ
+# only in what they train share one trace
+_FORWARDS = {}
+
+
 def run_pair(tp):
     """JAX's train-mode output with its intermediates, the port's eval and
     train outputs."""
-    fwd = jax.jit(lambda v, px, m, t: tp.jmodel.apply(v, px, m, t, train=True,
-                                                      capture_intermediates=True))
-    jout, inter = fwd(tp.variables(), jnp.asarray(tp.pixels), jnp.asarray(tp.mask), tp.text)
+    key = architecture(tp.cfg)
+    if key not in _FORWARDS:
+        _FORWARDS[key] = jax.jit(lambda v, px, m, t, jmodel=tp.jmodel: jmodel.apply(
+            v, px, m, t, train=True, capture_intermediates=True))
+    jout, inter = _FORWARDS[key](tp.variables(), jnp.asarray(tp.pixels), jnp.asarray(tp.mask),
+                                 tp.text)
     args = (torch.from_numpy(tp.pixels), torch.from_numpy(tp.mask), torch_text(tp.tb))
     with torch.inference_mode():
         pout = tp.port(*args)

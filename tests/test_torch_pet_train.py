@@ -22,7 +22,6 @@ the CPU.
 and the ODinW driver.
 """
 
-import dataclasses
 from collections.abc import Mapping
 
 import jax
@@ -31,7 +30,7 @@ import pytest
 import torch
 
 from tests.test_torch_pet import preset_overrides
-from tests.torch_common import TinyPair, pinned_matcher, port_config
+from tests.torch_common import TinyPair, architecture, pinned_matcher, port_config
 from ziragroundingdino_torch.models import build_model
 from ziragroundingdino_torch.train import criterion as pcrit
 from ziragroundingdino_torch.train import optim as poptim
@@ -110,21 +109,13 @@ def test_trainable_set_matches_jax(preset):
 _JAX_STEPS = {}
 
 
-def _architecture(cfg):
-    """`cfg` with the switches that only pick trainable parameters reset
-    (JAX's losses and gradients of every parameter do not read them), as a
-    key."""
-    return repr(dataclasses.replace(cfg, freeze_all=True, use_bert_tuning=False,
-                                    use_prompt_tuning=False, use_project_tuning=False))
-
-
 def jax_step(tp, batch):
     """(losses, gradients of every parameter, assignments) of JAX's
     `compute_losses` in train mode, its matcher recorded as it runs."""
     from ziragroundingdino_tpu.train import criterion as jcrit
     from ziragroundingdino_tpu.train.step import compute_losses
 
-    key = _architecture(tp.cfg)
+    key = architecture(tp.cfg)
     if key in _JAX_STEPS:
         return _JAX_STEPS[key]
     recorded = []

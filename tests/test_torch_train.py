@@ -219,6 +219,10 @@ def test_adamw_clip_and_lr_factors_match_optax():
     torch.testing.assert_close(updates[0], updates[1], rtol=OPT_TOL, atol=0)
 
 
+# JAX's jitted train-mode forward on `make_batch()` by config
+_FORWARDS = {}
+
+
 def _jax_step(seed, **overrides):
     """The tiny pair of weights `seed` (its config `tiny_config(**overrides)`),
     the batch, JAX's train-mode assignments (JAX's matcher on JAX's outputs,
@@ -235,8 +239,11 @@ def _jax_step(seed, **overrides):
     tp = TinyPair(seed=seed, **overrides)
     batch = make_batch()
     text = {k: batch[k] for k in pstep.TEXT_KEYS}
-    out = jax.jit(lambda p: tp.jmodel.apply({"params": p}, batch["pixels"], batch["mask"], text,
-                                            train=True))(tp.params)
+    key = repr(tp.cfg)
+    if key not in _FORWARDS:  # the weights of every seed through one trace
+        _FORWARDS[key] = jax.jit(lambda p, jmodel=tp.jmodel: jmodel.apply(
+            {"params": p}, batch["pixels"], batch["mask"], text, train=True))
+    out = _FORWARDS[key](tp.params)
     c2t = batch["cate_to_token_mask"]
     heads = [out] + list(out["aux_outputs"]) + [out["interm_outputs"]]
     # JAX's own matcher (`impl="jax"`, what its train step runs; under jit

@@ -93,11 +93,13 @@ def test_load_model_reads_reference_checkpoint(tiny_pair, tmp_path):
 
 def test_port_imports_no_jax():
     """In a process where `import jax` fails, every module of the port
-    imports and no module of the JAX package is loaded."""
+    imports and no module of the JAX package is loaded. matplotlib and PIL
+    fail too: the card's machine has neither, and the port imports them only
+    where it draws or decodes with them."""
     code = (
         "import sys, pkgutil, importlib\n"
-        "sys.modules['jax'] = None\n"
-        "sys.modules['flax'] = None\n"
+        "for m in ('jax', 'flax', 'matplotlib', 'PIL'):\n"
+        "    sys.modules[m] = None\n"
         "import ziragroundingdino_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names:\n"

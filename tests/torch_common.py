@@ -10,6 +10,7 @@ parameters through its weight bridge (`ziragroundingdino_torch.weights`).
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +22,16 @@ from tests.common import tiny_config, tiny_image_batch, tiny_text_batch
 from ziragroundingdino_torch import config as pc
 from ziragroundingdino_torch.models import build_model
 from ziragroundingdino_torch.weights import jax_params_to_state_dict
+
+# Under pytest-xdist each worker is a process of its own, and torch's
+# intra-op pool at its default (a thread per core) in each of them
+# oversubscribes the cores: its parallel kernels then wait for their turn
+# (six port test files at six workers took 368 s, against 89 s with a thread
+# each). A worker takes its share of the cores; a run in one process keeps
+# them all. Set while the workers import the test modules, before any test.
+_WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+if _WORKERS > 1:
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // _WORKERS))
 
 
 def _copy_fields(cls, src, **extra):
@@ -90,6 +101,30 @@ def torch_text(tb):
     return {k: torch.from_numpy(np.asarray(v)) for k, v in tb.asdict().items()}
 
 
+def architecture(cfg) -> str:
+    """`cfg` with the switches that only pick the trainable parameters reset,
+    as a key: the JAX model reads none of them, so its parameters and every
+    function of them are the same."""
+    return repr(dataclasses.replace(cfg, freeze_all=True, use_bert_tuning=False,
+                                    use_prompt_tuning=False, use_project_tuning=False))
+
+
+# `jax.eval_shape` of the JAX model's init by architecture: tracing the whole
+# init takes seconds, and many pairs share one (other seeds, other tests)
+_SHAPES = {}
+
+
+def init_shapes(jmodel, pixels, mask, text):
+    """The shape tree of `jmodel.init` on these inputs, traced once per
+    architecture and input shapes in a process."""
+    key = (architecture(jmodel.cfg), pixels.shape, mask.shape,
+           tuple(sorted((k, np.shape(v)) for k, v in text.items())))
+    if key not in _SHAPES:
+        _SHAPES[key] = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0), jnp.asarray(pixels),
+                                      jnp.asarray(mask), text)
+    return _SHAPES[key]
+
+
 class TinyPair:
     """The tiny JAX model and the port built with the same parameters (and,
     for the repconvbn variant, the same BatchNorm statistics: `stats`, the
@@ -101,8 +136,7 @@ class TinyPair:
         self.cfg = tiny_config(**overrides)
         self.jmodel = GroundingDINO(cfg=self.cfg)
         self.pixels, self.mask, self.tb, self.text = jax_inputs()
-        shapes = jax.eval_shape(self.jmodel.init, jax.random.PRNGKey(0),
-                                jnp.asarray(self.pixels), jnp.asarray(self.mask), self.text)
+        shapes = init_shapes(self.jmodel, self.pixels, self.mask, self.text)
         self.params = random_params(shapes["params"], seed)
         self.stats = random_stats(shapes["batch_stats"], seed) if "batch_stats" in shapes else {}
         self.port = build_model(port_config(self.cfg), device="cpu", dtype="float32")

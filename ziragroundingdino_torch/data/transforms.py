@@ -20,7 +20,7 @@ need PIL, imported only when such a file is read.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -209,11 +209,12 @@ def eval_transform(sample: Sample, cfg: DataConfig) -> Sample:
     return dataclasses.replace(sample, image=image, boxes=boxes, crowd_boxes=crowd)
 
 
-def load_image(path: str, cfg: DataConfig = DataConfig()):
+def load_image(path: str, cfg: Optional[DataConfig] = None):
     """`util/inference.py:35-41`: read, resize (shortest side 800, longest
-    at most 1333), normalize and pad to a bucket. Returns (the decoded image
-    uint8 [H, W, 3], (pixels [1, bh, bw, 3] f32, mask [1, bh, bw] bool), the
-    resized (h, w))."""
+    at most 1333), normalize and pad to a bucket (`cfg`: a default
+    `DataConfig` when None). Returns (the decoded image uint8 [H, W, 3],
+    (pixels [1, bh, bw, 3] f32, mask [1, bh, bw] bool), the resized (h, w))."""
+    cfg = cfg or DataConfig()
     src = read_image(path)
     sample = Sample(image=src, boxes=np.zeros((0, 4), np.float32),
                     labels=np.zeros((0,), np.int64), orig_size=src.shape[:2])

@@ -3,7 +3,7 @@
 (DDP, `train_net.py:246`): a mesh is its `data` axis over the processes
 that `torchrun` started, one card each. The JAX package's other axes,
 `model` (tensor parallel), `seq` (sequence parallel) and `pipe`, are not
-ported (ROADMAP Queue 1 item 10), nor its `_TP_RULES` / `param_sharding`.
+ported (ROADMAP Queue 1 item 6), nor its `_TP_RULES` / `param_sharding`.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import torch.distributed as tdist
 from ziragroundingdino_torch.parallel import dist
 
 NOT_PORTED = ("tensor, sequence and pipeline parallelism (the mesh's model, seq and pipe "
-              "axes) are not ported yet: ROADMAP Queue 1 item 10")
+              "axes) are not ported yet: ROADMAP Queue 1 item 6")
 
 
 def parse_mesh(spec: str) -> Tuple[int, int, int]:

@@ -43,7 +43,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 LEFT_OUT = ("Not ported yet: tensor and sequence parallelism (--mesh's model and seq axes, "
-            "ROADMAP Queue 1 item 10).")
+            "ROADMAP Queue 1 item 6).")
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:

@@ -232,16 +232,22 @@ def run_task(state: IncrementalState, task: TaskSpec, model: GroundingDINO,
 
 
 def run_replay_phase(state: IncrementalState, model: GroundingDINO,
-                     tokenizer: WordPieceTokenizer, iters: int = 100,
-                     lr: float = 1e-4) -> IncrementalState:
-    """The MemoryReplayer phase (`train_multidatasets.py:257-312`), text
-    replay only: after the task sequence, train the adapters against
-    `replay_memory_loss` with AdamW at optax.adamw's defaults (weight decay
-    1e-4, eps 1e-8; every adapter decays, gradient or not), then merge as
-    after a task. The replay trains the "adapter" parameters whatever the
-    preset, as the JAX package's (`freeze_all=True`); a model with none
-    (`finetune`, `prompttune`, ...) computes the losses and changes
-    nothing."""
+                     tokenizer: WordPieceTokenizer, iters: int = 100, lr: float = 1e-4,
+                     image_batch_fn: Optional[Callable] = None,
+                     image_loss_fn: Optional[Callable] = None) -> IncrementalState:
+    """The MemoryReplayer phase (`train_multidatasets.py:257-312`): after
+    the task sequence, train the adapters against `replay_memory_loss` with
+    AdamW at optax.adamw's defaults (weight decay 1e-4, eps 1e-8; every
+    adapter decays, gradient or not), then merge as after a task. The
+    replay trains the "adapter" parameters whatever the preset, as the JAX
+    package's (`freeze_all=True`); a model with none (`finetune`,
+    `prompttune`, ...) computes the losses and changes nothing.
+
+    The reference's COCO-replay configuration passes both hooks: each
+    iteration calls `image_batch_fn()`, and where it returns a batch,
+    `image_loss_fn(model, batch)` (a scalar tensor, e.g. `train.step.
+    compute_losses`' total with the caller's dropout generator) joins the
+    text loss. An iteration whose batch is None is text-only."""
     if not state.learned_classes:
         return state
     model.load_state_dict(state.params)
@@ -252,10 +258,15 @@ def run_replay_phase(state: IncrementalState, model: GroundingDINO,
     learned = list(state.learned_classes)
     cfg = model.cfg
     for it in range(iters):
+        batch = image_batch_fn() if image_batch_fn is not None else None
         losses = replay_memory_loss(model, tokenizer, learned, state.prompt_memory,
                                     cfg.max_text_len)
         total = sum(losses.values())
-        if total.requires_grad:  # a model without a language branch has no gradient here
+        if image_loss_fn is not None and batch is not None:
+            total = total + image_loss_fn(model, batch)
+        # a model without a language branch has no text gradient: its image
+        # loss, where there is one, carries the graph of the sum
+        if total.requires_grad:
             total.backward()
         if opt is not None:
             for p in params:

@@ -1,11 +1,14 @@
 """User-facing inference API, the port of the JAX package's `utils/
 inference.py` (reference `util/inference.py:24-97` and the demo's phrase
-extraction, `util/utils.py:598`): `load_model`, `predict`,
+extraction, `util/utils.py:598`): `load_model`, `load_image`, `predict`,
 `predict_classes`, `get_phrases_from_posmap` and `annotate`.
 
+    lm = load_model("groundingdino_swint_ogc.pth", "vocab.txt")
+    image, (pixels, mask), size = load_image("cat.ppm")
+    boxes, logits, phrases = predict(lm, pixels, mask, "cat . dog .")
+
 Every forward runs under `torch.inference_mode()` on the model's device.
-Images come in already normalized and padded to a bucket:
-`data.transforms.load_image` reads, resizes and pads one.
+`load_image` reads, resizes, normalizes and pads an image to a bucket.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import numpy as np
 import torch
 
 from ziragroundingdino_torch.config import GroundingDINOConfig
+from ziragroundingdino_torch.data.transforms import load_image  # noqa: F401  (part of this API)
 from ziragroundingdino_torch.models import GroundingDINO, build_model
 from ziragroundingdino_torch.text.masks import recover_to_cls_logits
 from ziragroundingdino_torch.text.tokenizer import (
@@ -194,27 +198,46 @@ def predict_classes(
 
 def _draw_box(img: np.ndarray, x0: float, y0: float, x1: float, y1: float,
               color: Tuple[int, int, int], width: int) -> None:
-    """The outline of [x0, x1] x [y0, y1] (pixel coordinates), `width`
-    pixels thick inside it as PIL's `rectangle` draws it, clipped to the
-    image, in place."""
+    """The outline of [x0, x1] x [y0, y1] (pixel coordinates) as Pillow's
+    `ImageDraw.rectangle(outline=, width=)` draws it, clipped to the image,
+    in place: the corners truncated toward zero; for each i < width the
+    rows y0 + i and y1 - i from x0 to x1, and the columns x0 + i and
+    x1 - i from row y0 + width toward row y1 - width + 1, that row left out
+    (in a box thinner than 2 * width the columns run upward, past it)."""
     h, w = img.shape[:2]
-    xa, ya, xb, yb = (int(np.floor(v)) for v in (x0, y0, x1, y1))
-    xa, xb = sorted((xa, xb))
-    ya, yb = sorted((ya, yb))
-    for t in range(width):
-        top, bottom, left, right = ya + t, yb - t, xa + t, xb - t
-        if top > bottom or left > right:
-            break
-        cl, cr = max(left, 0), min(right, w - 1)
-        ct, cb = max(top, 0), min(bottom, h - 1)
-        if cl > cr or ct > cb:
-            break
-        for y in (top, bottom):
-            if 0 <= y < h:
-                img[y, cl:cr + 1] = color
-        for x in (left, right):
-            if 0 <= x < w:
-                img[ct:cb + 1, x] = color
+    x0, x1 = sorted((int(x0), int(x1)))
+    y0, y1 = sorted((int(y0), int(y1)))
+    left, right = max(x0, 0), min(x1, w - 1)
+    for i in range(width):
+        for y in (y0 + i, y1 - i):
+            if 0 <= y < h and left <= right:
+                img[y, left:right + 1] = color
+        start, stop = y0 + width, y1 - width + 1
+        rows = range(start, stop) if stop >= start else range(stop + 1, start + 1)
+        top, bottom = max(rows.start, 0), min(rows.stop, h)
+        for x in (x0 + i, x1 - i):
+            if 0 <= x < w and top < bottom:
+                img[top:bottom, x] = color
+
+
+def draw_boxes(image_source: np.ndarray, corners: Sequence[Tuple[float, float, float, float]],
+               labels: Sequence[str]) -> np.ndarray:
+    """Each box (xyxy, pixels) drawn in red, 2 pixels wide, on a copy of the
+    image, on the numpy array and clipped to it; each label written above
+    its box with PIL where it is installed, and left out where it is not
+    (the port has no font of its own)."""
+    img = np.ascontiguousarray(image_source, dtype=np.uint8).copy()
+    for c in corners:
+        _draw_box(img, *c, color=(255, 0, 0), width=2)
+    try:
+        from PIL import Image, ImageDraw
+    except ImportError:
+        return img
+    pil = Image.fromarray(img)
+    draw = ImageDraw.Draw(pil)
+    for (x0, y0, _, _), label in zip(corners, labels):
+        draw.text((x0, max(y0 - 12, 0)), label, fill=(255, 0, 0))
+    return np.asarray(pil)
 
 
 def annotate(
@@ -223,25 +246,13 @@ def annotate(
     logits: np.ndarray,
     phrases: List[str],
 ) -> np.ndarray:
-    """Draw each box in red, 2 pixels wide, on a copy of the image
+    """Draw each box and its label ("phrase score") with `draw_boxes`
     (`utils/inference.py:188-206` of the JAX package; the reference uses
-    supervision, `util/inference.py:82-97`). The boxes are drawn on the
-    numpy array, clipped to the image. Each label ("phrase score") is
-    written above its box with PIL where it is installed, and left out
-    where it is not: the port has no font of its own."""
-    img = np.ascontiguousarray(image_source, dtype=np.uint8).copy()
-    h, w = img.shape[:2]
+    supervision, `util/inference.py:82-97`)."""
+    h, w = np.asarray(image_source).shape[:2]
     corners = []
     for box in np.asarray(boxes, np.float64).reshape(-1, 4):
         cx, cy, bw, bh = box * [w, h, w, h]
         corners.append((cx - bw / 2, cy - bh / 2, cx + bw / 2, cy + bh / 2))
-        _draw_box(img, *corners[-1], color=(255, 0, 0), width=2)
-    try:
-        from PIL import Image, ImageDraw
-    except ImportError:
-        return img
-    pil = Image.fromarray(img)
-    draw = ImageDraw.Draw(pil)
-    for (x0, y0, _, _), score, phrase in zip(corners, logits, phrases):
-        draw.text((x0, max(y0 - 12, 0)), f"{phrase} {score:.2f}", fill=(255, 0, 0))
-    return np.asarray(pil)
+    return draw_boxes(image_source, corners,
+                      [f"{phrase} {score:.2f}" for score, phrase in zip(logits, phrases)])
