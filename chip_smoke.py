@@ -1,6 +1,6 @@
 """Drive the PyTorch port on one NVIDIA card and check it.
 
-    python3 chip_smoke.py [--profile DIR]
+    python3 chip_smoke.py [--profile DIR] [--phase3c | --phase12]
 
 Phases, in order (any failure raises, and the script exits non-zero):
   1. card: name, nvidia-smi name and power limit; TF32 off for f32 checks;
@@ -32,9 +32,12 @@ Phases, in order (any failure raises, and the script exits non-zero):
      and the encoder's (where the binned passes overtake the single pass);
   3c. the exact assignment: `lsap` against `lsap_plain` at P = 7 * B
      problems (the train step's 7 outputs of B images, B = 1, 2), Q = 900,
-     N = 1, 5, 50, 100 and Q, integer costs (ties), padded targets at BIG
-     and Q = 901: assignments exactly equal, totals equal to scipy's; the
-     call and device time, the host scipy path's time, the bytes bound;
+     N = 1, 5, 50, 100 and Q, integer costs (ties), half the targets at BIG,
+     Q = 901, and the lifecycle's padding (N = max_boxes = 100, 5 and 30
+     valid targets, the rest BIG): assignments exactly equal, totals equal
+     to scipy's, one launch a call; the call and device time, the host scipy
+     path's time, the bytes bound, and at N = 5, 100 and the padded shape
+     the latency bound (`lsap_latency_bound`, with PR 8's beside it);
   4. whole model, card vs CPU: a reduced-depth f32 model (tiny Swin/BERT,
      2 + 2 layers) with the same seeded weights on both;
   4b. the same model's train step, card vs CPU: every loss and every
@@ -206,7 +209,7 @@ Phases, in order (any failure raises, and the script exits non-zero):
        bitwise the `data.transforms` route; 12b's eval detections of the
        first task scored by `VocMeanAP` and `LvisMeanAP` beside
        `CocoMeanAP`, each finite and in [0, 1]; a `phase 12: {...}` line.
-  Phases 5b, 6, 7c, 8, 10 and 12 check one `lsap` launch and no host
+  Phases 5b, 6, 7c, 8, 10, 11 and 12 check one `lsap` launch and no host
   matcher call (no copy of the costs to the host) per train step.
   13. result: a `kernels` JSON line, the nvidia-smi line, and last
      `{"ok": true, "device": {...}}`.
@@ -422,9 +425,9 @@ def binned_traffic(value, shapes, loc, grad_out) -> dict:
                 f32_accumulator_mb=4 * value.numel() / 1e6)
 
 
-def launch_breakdown(fn) -> dict:
-    """The device time of each launch of one call of `fn` under
-    torch.profiler, labelled by pass; returns {label: ms}."""
+def device_launches(fn) -> list:
+    """The device activities (kernels, memsets, copies) of one call of `fn`
+    under torch.profiler, in the order they ran."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -433,9 +436,15 @@ def launch_breakdown(fn) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
-                      and not getattr(e, "is_user_annotation", False)),
-                     key=lambda e: e.time_range.start)
+    return sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)),
+                  key=lambda e: e.time_range.start)
+
+
+def launch_breakdown(fn) -> dict:
+    """The device time of each launch of one call of `fn` under
+    torch.profiler, labelled by pass; returns {label: ms}."""
+    kernels = device_launches(fn)
     labels = (("msda_bin_count", "count"), ("msda_bin_scan", "scan"),
               ("msda_bin_records", "records"), ("msda_backward_main", "main"),
               ("msda_backward_accumulate", "accumulate"), ("Memset", "memset"),
@@ -474,6 +483,9 @@ def check_ptxas(name: str, text: str) -> int:
                           + ("" if t.group(3) is None else
                              ", L=P=4" if t.group(3) != "0" else ", generic L, P") + ">"
                           if t else "")
+        t = re.search(r"lsap_kernelILi(\d+)E", fn or "")
+        if t:  # the instance's columns per thread
+            label = f"lsap_kernel<{t.group(1)}>"
         log(f"  {name}: {label}: {regs} registers, {frame} bytes stack frame, "
             f"{stores} bytes spill stores, {loads} bytes spill loads")
         if frame or stores or loads:
@@ -638,8 +650,15 @@ LSAP_CASES = [
     *[("integers", b, 900, 50, "integers") for b in (1, 2)],
     *[("big_columns", b, 900, 20, "big_columns") for b in (1, 2)],
     *[("tail", b, 901, 50, "uniform") for b in (1, 2)],
+    *[("padded", b, 900, 100, "padded") for b in (1, 2)],
 ]
-LSAP_TIMED = ("n5", 1)  # the main path's: phase 5b's 5 boxes on one image
+LSAP_TIMED = ("n5", 1)  # phase 5b's: its 5 boxes on one image, unpadded
+# the lifecycle's: every step pads its targets to max_boxes = 100
+# (data/loader.py), image b of the batch with PADDED_VALID[b] valid ones
+LSAP_PADDED = ("padded", 1), ("padded", 2)
+PADDED_VALID = (5, 30)
+# the cases whose latency bound is logged (lsap_plain run per problem on the host)
+LSAP_LATENCY_LOGGED = (LSAP_TIMED, ("n100", 1), *LSAP_PADDED)
 # total cost against scipy's, relative: the kernel's duals are f32, scipy's f64
 LSAP_TOTAL_TOL = 1e-6
 SCIPY_CALLS = [0]  # calls of the host matcher (`train.matcher.assign_scipy`) in this run
@@ -675,17 +694,23 @@ def check_matcher(label: str, before, steps: int) -> int:
     return lsap
 
 
-def lsap_costs(kind: str, p: int, q: int, n: int, seed: int) -> torch.Tensor:
-    """Seeded [P, Q, N] f32 costs on the host: uniform in [0, 10), integers
-    0..7 (many ties), or uniform with the second half of the targets'
-    columns at the matcher's BIG (padded targets)."""
+def lsap_costs(kind: str, b: int, q: int, n: int, seed: int) -> torch.Tensor:
+    """Seeded [P, Q, N] f32 costs on the host, P = LSAP_OUTPUTS * b: uniform
+    in [0, 10), integers 0..7 (many ties), uniform with the second half of the
+    targets' columns at the matcher's BIG, or the lifecycle's padding
+    ("padded": problem p is image p % b of its output, as the criterion
+    stacks them, with PADDED_VALID[p % b] valid targets, the rest BIG)."""
     rng = np.random.RandomState(seed)
+    p = LSAP_OUTPUTS * b
     if kind == "integers":
         cost = rng.randint(0, 8, (p, q, n)).astype(np.float32)
     else:
         cost = (10.0 * rng.rand(p, q, n)).astype(np.float32)
     if kind == "big_columns":
         cost[:, :, n // 2:] = 1.0e7  # train/matcher.py::BIG
+    if kind == "padded":
+        for k in range(p):
+            cost[k, :, PADDED_VALID[k % b]:] = 1.0e7
     return torch.from_numpy(cost)
 
 
@@ -714,18 +739,25 @@ def phase_lsap(lsap_mod, matcher):
     assignments exactly equal (the plain version on the host's CPU: the same
     f32 operations give the same values, and it takes seconds there where
     the card's step-by-step syncs take minutes), totals equal to scipy's.
-    Times per case: the call (events around it, with the device transpose),
-    the device time (a spin first), the host scipy path on the same costs
-    (copy to the host, `linear_sum_assignment` per problem, copy back), and
-    at the main path's shape the plain version on the card. Returns the
-    timed case's record for the kernels line."""
-    record = None
+    One launch a call (the wrapper's count; at LSAP_LATENCY_LOGGED also
+    torch.profiler: the kernel is the call's only device work wherever it
+    records any, and it does for at least one case). Times per
+    case: the call (events around it: the wrapper and its launch), the
+    device time (a spin first), the host scipy path on the same
+    costs (copy to the host, `linear_sum_assignment` per problem, copy
+    back), and at the main path's shape the plain version on the card; the
+    latency bound (`lsap_latency_bound`) at LSAP_LATENCY_LOGGED. Returns the
+    timed case's record for the kernels line, with the padded cases'."""
+    record, padded, profiled = None, {}, 0
     for seed, (name, b, q, n, kind) in enumerate(LSAP_CASES):
         p = LSAP_OUTPUTS * b
-        cost = lsap_costs(kind, p, q, n, seed)
+        cost = lsap_costs(kind, b, q, n, seed)
         dev = cost.cuda()
+        before = lsap_mod.lsap_cuda.launches
         got = lsap_mod.lsap_cuda(dev)
         torch.cuda.synchronize()
+        if lsap_mod.lsap_cuda.launches != before + 1:
+            raise AssertionError(f"lsap at {name} B={b}: not one launch a call")
         t = time.perf_counter()
         want = lsap_mod.lsap_plain(cost)
         plain_cpu_ms = (time.perf_counter() - t) * 1e3
@@ -752,36 +784,63 @@ def phase_lsap(lsap_mod, matcher):
             f"scipy rel gap {gap:.2e}; call_ms={ms:.4f} device_ms={device_ms:.4f} "
             f"scipy_host_ms={scipy_ms:.4f} plain_cpu_ms={plain_cpu_ms:.1f} "
             f"bound_ms={bound_ms:.6f} ({bound_by}, {nbytes / 1e6:.3f} MB; latency-bound: "
-            f"share {bound_ms / device_ms:.4f})")
+            f"share {bound_ms / device_ms:.4f}); plan {tuple(lsap_mod.launch_plan(q, n))}")
+        rec = dict(max_abs_err=0.0, ms=ms, device_ms=device_ms, plain_cpu_ms=plain_cpu_ms,
+                   scipy_host_ms=scipy_ms, bound_ms=bound_ms, bound_by=bound_by)
+        if (name, b) in LSAP_LATENCY_LOGGED:
+            # the call's device work is the kernel alone: no transpose, no
+            # copy. This machine's torch.profiler at times records no device
+            # activity for a session: up to 3 tries, and one case must show it.
+            for _ in range(3):
+                ran = [e.name for e in device_launches(lambda: lsap_mod.lsap_cuda(dev))]
+                if ran:
+                    break
+            if ran and (len(ran) != 1 or "lsap_kernel" not in ran[0]):
+                raise AssertionError(f"lsap at {name} B={b}: the call ran {ran} on the device")
+            profiled += bool(ran)
+            log(f"lsap {name} B={b}: device activities of one call under torch.profiler: "
+                f"{ran or 'none recorded'}")
+            rec.update(lsap_latency_bound(lsap_mod, cost, n))
+            log(f"lsap {name} B={b}: latency bound " + json.dumps(
+                {k: rec[k] for k in ("dependent_steps", "row_phases", "sm_clock_mhz",
+                                     "latency_bound_ms", "latency_bound_pr8_ms")})
+                + f", share {rec['latency_bound_ms'] / device_ms:.4f} of the device time "
+                f"({rec['latency_bound_pr8_ms'] / device_ms:.4f} of the PR 8 bound)")
+        if (name, b) in LSAP_PADDED:
+            padded[f"B={b}"] = {k: v for k, v in rec.items() if k not in ("max_abs_err",
+                                                                          "bound_by")}
         if (name, b) == LSAP_TIMED:
             plain_ms = host_ms(lambda: lsap_mod.lsap_plain(dev), n=3)
             if not torch.equal(lsap_mod.lsap_plain(dev).cpu(), want):
                 raise AssertionError("lsap_plain on the card disagrees with it on the host")
             log(f"lsap {name} B={b}: lsap_plain on the card {plain_ms:.2f} ms")
-            record = dict(max_abs_err=0.0, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
-                          plain_cpu_ms=plain_cpu_ms, scipy_host_ms=scipy_ms,
-                          bound_ms=bound_ms, bound_by=bound_by,
-                          **lsap_latency_bound(lsap_mod, cost, n))
-            log(f"lsap {name} B={b}: latency bound " + json.dumps(
-                {k: record[k] for k in ("dependent_steps", "sm_clock_mhz", "latency_bound_ms")})
-                + f", share {record['latency_bound_ms'] / device_ms:.3f} of the device time")
+            record = dict(rec, plain_ms=plain_ms)
+    if not profiled:
+        raise AssertionError("lsap: torch.profiler recorded no call's device work")
+    record["padded"] = padded
     return record
 
 
-STEP_CYCLES = 400 + 2 * 20  # a Dijkstra step: a cost row read from L2/HBM, two shared round trips
-PHASE_CYCLES = 2 * 20  # a row's init, dual update and augmentation: a shared round trip each
+# Hopper's typical latencies, in SM cycles (a floor: instruction issue,
+# shuffles and barrier arrivals are not counted)
+STAGE_CYCLES = 600  # the staging's device-memory round trip, paid once
+STEP_CYCLES = 20 + 20  # a Dijkstra step on chip: a shared-memory round trip and a barrier
+PHASE_CYCLES = 2 * 20  # a row's phases: each a shared round trip and a barrier
+STEP_CYCLES_PR8 = 400 + 2 * 20  # PR 8's bound: a row read from L2/HBM each step, two barriers
 
 
 def lsap_latency_bound(lsap_mod, cost: torch.Tensor, n: int) -> dict:
     """The kernel's least time as a chain of dependent steps: a block solves
     one problem, each Dijkstra step waits for the step before (its row is
-    the previous step's argmin), and each of the N rows adds its init, dual
-    update and augmentation phases, each behind a barrier. The steps are
-    `lsap_plain`'s count of the longest problem (each run alone); a step
-    costs one device-memory round trip and two shared-memory ones (the
-    block argmin's two barriers), ~400 and ~20 cycles, Hopper's typical
-    latencies, at the card's maximum SM clock. Shuffles and barrier
-    arrivals are not counted: a floor."""
+    the previous step's argmin). The costs are staged once: one
+    device-memory round trip (~600 cycles) and every byte of the launch at
+    3.35 TB/s. Then each step costs a shared-memory round trip and a barrier
+    (~20 + ~20 cycles: the costs and the column state stay on chip), and
+    each of the N rows adds three phases (~40 cycles each, as PR 8 counted
+    them). The steps are `lsap_plain`'s count of the longest problem (each
+    run alone), at the card's maximum SM clock. The PR 8 bound (every step a
+    device-memory round trip and two shared ones, ~440 cycles, no staging)
+    is kept beside it, so that earlier shares stay comparable."""
     steps = []
     for k in range(cost.shape[0]):
         before = lsap_mod.lsap_plain.steps
@@ -791,9 +850,12 @@ def lsap_latency_bound(lsap_mod, cost: torch.Tensor, n: int) -> dict:
                           "--format=csv,noheader,nounits"],
                          capture_output=True, text=True, timeout=60, check=True)
     mhz = float(res.stdout.split()[0])
-    cycles = max(steps) * STEP_CYCLES + 3 * n * PHASE_CYCLES
+    nbytes = cost.numel() * 4 + cost.shape[0] * n * 8
+    cycles = STAGE_CYCLES + max(steps) * STEP_CYCLES + 3 * n * PHASE_CYCLES
+    cycles_pr8 = max(steps) * STEP_CYCLES_PR8 + 3 * n * PHASE_CYCLES
     return {"dependent_steps": max(steps), "row_phases": 3 * n, "sm_clock_mhz": mhz,
-            "latency_bound_ms": cycles / (mhz * 1e3)}
+            "latency_bound_ms": cycles / (mhz * 1e3) + nbytes / HBM_BYTES_PER_S * 1e3,
+            "latency_bound_pr8_ms": cycles_pr8 / (mhz * 1e3)}
 
 
 def tiny_model_kwargs(pc):
@@ -3925,6 +3987,8 @@ def main() -> int:
     parser.add_argument("--phase11-root", type=pathlib.Path, default=None, help=argparse.SUPPRESS)
     parser.add_argument("--phase12", action="store_true",
                         help="build the kernels and run phase 12 alone (no result line)")
+    parser.add_argument("--phase3c", action="store_true",
+                        help="build the kernels and run phase 3c alone (no result line)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3962,6 +4026,9 @@ def main() -> int:
     for name in cuda_build.sources():
         if not check_ptxas(name, cuda_build.log_path(name).read_text()):
             raise AssertionError(f"no ptxas report for {name}.cu")
+    if args.phase3c:
+        log("phase 3c: " + json.dumps(phase_lsap(lsap_mod, matcher)))
+        return 0
     if args.phase12:
         count_scipy_calls(matcher)
         log("phase 12: " + json.dumps(phase_replay_and_metrics(
@@ -4146,13 +4213,15 @@ def main() -> int:
         "bound_by": rec_lsap["bound_by"],
         "library_ms": None,
         "timed_at": f"the train step's matching at batch 1: P={LSAP_OUTPUTS} problems, Q=900, "
-                    "N=5, f32 costs; ms and device_ms include the device transpose; "
-                    "max_abs_err: assignments, exactly equal in every phase 3c case; "
+                    "N=5, f32 costs; max_abs_err: assignments, exactly equal in every "
+                    "phase 3c case; padded: the lifecycle's N=100 at batch 1 and 2; "
                     "plain_ms: lsap_plain on the card; no PyTorch call solves an assignment, "
                     "scipy_host_ms is the host path (copy, scipy, copy back)",
         "device_ms": rec_lsap["device_ms"],
         "latency_bound_ms": rec_lsap["latency_bound_ms"],
+        "latency_bound_pr8_ms": rec_lsap["latency_bound_pr8_ms"],
         "dependent_steps": rec_lsap["dependent_steps"],
+        "padded": rec_lsap["padded"],
         "scipy_host_ms": rec_lsap["scipy_host_ms"],
         "plain_cpu_ms": rec_lsap["plain_cpu_ms"],
         "lifecycle_launches": life_lsap,

@@ -4,14 +4,17 @@ matcher) on the CPU.
 
 `lsap_plain` runs `lsap_jax`'s loops with its f32 expressions, so the
 assignments are equal, ties included, on costs made from a numpy seed:
-uniform f32, integer-valued (many ties), `BIG` columns of invalid targets,
-N = 1 and N = Q. The total cost equals scipy's. Then the set criterion
+uniform f32, integer-valued (many ties), `BIG` columns of invalid targets
+(as the lifecycle pads its targets), constant target columns, columns of
++0.0 and -0.0, N = 1 and N = Q. The total cost equals scipy's. Then the set criterion
 with the port's default matcher against JAX's default
 (`set_criterion(matcher_impl="jax")`, its costs computed eagerly) on the
 tiny model's train-mode outputs: every loss at 1e-4, the assignments
-equal. The wrapper refuses what the kernel does not take; on a card
+equal. The wrapper refuses what the kernel does not take, and its launch
+plan covers every Q it takes within a block's shared memory; on a card
 (`cuda` marker) the kernel returns the plain version's assignments
-exactly:
+exactly, with rows that overflow shared memory and problems that are not
+finite too:
 
     python -m pytest --noconftest -m cuda tests/test_torch_lsap.py
 """
@@ -52,11 +55,38 @@ def _costs(case: str, p: int = 6, q: int = 12, n: int = 5) -> np.ndarray:
         return rng.randint(0, 3, (p, q, q)).astype(np.float32)
     if case == "matcher_scale":  # the train step's Q and a ragged N
         return (10.0 * rng.rand(p, 900, 7)).astype(np.float32)
+    if case == "padded":  # 3 valid targets of 10, as the loader pads to max_boxes
+        cost = rng.rand(p, 12, 10).astype(np.float32)
+        cost[:, :, 3:] = pmatch.BIG
+        return cost
+    if case == "constant_rows":  # targets whose costs are one ordinary value
+        cost = rng.rand(p, q, n).astype(np.float32)
+        cost[:, :, 1] = cost[:, :, 3] = 0.5
+        cost[:, :, 4] = 0.25
+        return cost
+    if case == "signed_zero":  # +0.0 and -0.0 in a column, and in others among ties
+        cost = rng.randint(0, 3, (p, q, n)).astype(np.float32)
+        cost[:, :, 0] = 0.0
+        cost[(cost == 0) & (rng.rand(p, q, n) < 0.5)] = -0.0
+        return cost
+    # on the card only (the plain version is the reference there)
+    if case == "almost_constant":  # a BIG row but for one entry
+        cost = rng.rand(p, q, n).astype(np.float32)
+        cost[:, :, 2] = pmatch.BIG
+        cost[:, 5, 2] = 3.0
+        return cost
+    if case == "dense_overflow":  # 100 varying rows of 900: beyond shared memory
+        return (10.0 * rng.rand(p, 900, 100)).astype(np.float32)
+    if case == "overflow_after_constant":  # constant rows in slots, varying rows beyond
+        cost = (10.0 * rng.rand(p, 900, 100)).astype(np.float32)
+        cost[:, :, :30] = pmatch.BIG
+        return cost
     raise ValueError(case)
 
 
 CASES = ("uniform", "integers", "big_columns", "one_target", "square", "square_integers",
-         "matcher_scale")
+         "matcher_scale", "padded", "constant_rows", "signed_zero")
+CARD_CASES = CASES + ("almost_constant", "dense_overflow", "overflow_after_constant")
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -96,6 +126,29 @@ def test_lsap_dispatch_and_refusals():
     assert plsap.lsap_cuda.launches == before
     with pytest.raises(ValueError, match="unknown matcher impl"):
         pmatch.assign(cost, impl="jax")
+
+
+def test_launch_plan_covers_every_q():
+    """Every Q up to MAX_Q gets an instance whose threads own all columns,
+    within a block's shared memory, with the row slots that are left."""
+    assert plsap.launch_plan(900, 100) == plsap.LaunchPlan(4, 256, 18800 + 58 * 3604, 58)
+    assert plsap.launch_plan(900, 5).slots == 5
+    for q in range(1, plsap.MAX_Q + 1):
+        for n in {1, (q + 1) // 2, q}:
+            plan = plsap.launch_plan(q, n)
+            assert plan.cols_per_thread in plsap.COLS_PER_THREAD
+            assert plan.cols_per_thread * plan.threads >= q
+            assert plan.cols_per_thread == 1 or (plan.cols_per_thread // 2) * plan.threads < q
+            fixed = -(-(20 * q + 8 * n) // 16) * 16
+            assert plan.smem_bytes == fixed + plan.slots * 4 * (q | 1)
+            assert plan.smem_bytes <= plsap.SMEM_LIMIT - plsap.SMEM_RESERVE
+            assert 0 <= plan.slots <= n
+            assert plan.slots == n or plan.smem_bytes + 4 * (q | 1) > (plsap.SMEM_LIMIT
+                                                                        - plsap.SMEM_RESERVE)
+    with pytest.raises(ValueError, match="targets exceed"):
+        plsap.launch_plan(5, 6)
+    with pytest.raises(ValueError, match="exceed the kernel's"):
+        plsap.launch_plan(plsap.MAX_Q + 1, 2)
 
 
 def test_set_criterion_default_matcher_matches_jax(tiny_pair):
@@ -167,7 +220,7 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", CARD_CASES)
 def test_kernel_matches_plain_on_card(cuda_device, case):
     cost = torch.from_numpy(_costs(case))
     want = plsap.lsap_plain(cost)
@@ -176,3 +229,20 @@ def test_kernel_matches_plain_on_card(cuda_device, case):
     torch.cuda.synchronize()
     assert plsap.lsap_cuda.launches == before + 1
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.cuda
+def test_kernel_gives_identity_where_not_finite_on_card(cuda_device):
+    """A problem whose only non-finite value sits in an otherwise constant
+    (BIG) row, and one with a constant row of +inf, get n -> n; the others
+    are solved."""
+    cost = _costs("padded")
+    cost[1, 4, 6] = np.inf
+    cost[2, :, 5] = np.inf
+    finite = [0, 3, 4, 5]
+    want = plsap.lsap_plain(torch.from_numpy(cost[finite])).numpy()
+    before = plsap.lsap_cuda.launches
+    got = plsap.lsap_cuda(torch.from_numpy(cost).to(cuda_device)).cpu().numpy()
+    assert plsap.lsap_cuda.launches == before + 1
+    np.testing.assert_array_equal(got[[1, 2]], np.tile(np.arange(cost.shape[2]), (2, 1)))
+    np.testing.assert_array_equal(got[finite], want)

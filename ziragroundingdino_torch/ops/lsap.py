@@ -18,24 +18,51 @@ longest path of each row, not their sum; `lsap_plain.steps` counts them
 (of one problem, the dependent steps of its block in the kernel). The CPU
 uses it.
 
-`lsap_cuda` launches `csrc/lsap.cu`: one block per problem, the query-long
-and target-long arrays in shared memory, a block-wide argmin per Dijkstra
-step. The same f32 operations in the same order give the plain version's
-assignments exactly. Costs must be finite: `lsap_plain` raises on any other,
-and the kernel, which cannot raise without a sync, gives such a problem the
-assignment n -> n.
+`lsap_cuda` launches `csrc/lsap.cu` on the costs as they are, [P, Q, N]: one
+block per problem, which stages its costs once (a constant row as one
+scalar, the others into shared memory as far as `launch_plan`'s slots go,
+the rest into a global scratch), keeps each column's state in a thread's
+registers, and takes one barrier per Dijkstra step. The same f32 operations
+in the same order give the plain version's assignments exactly. Costs must
+be finite: `lsap_plain` raises on any other, and the kernel, which cannot
+raise without a sync, gives such a problem the assignment n -> n.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from ziragroundingdino_torch.ops import cuda_build
 
-MAX_Q = 8192  # queries: 17 bytes of shared memory each (and 8 a target) must fit 227 KB
+MAX_Q = 8192  # queries: 20 bytes of shared memory each (and 8 a target) must fit 227 KB
+THREADS = 256  # a block per problem
+COLS_PER_THREAD = (1, 2, 4, 8, 16, 32)  # the kernel's instances: columns a thread owns
+SMEM_LIMIT = 232_448  # shared memory a block may use on sm_90
+SMEM_RESERVE = 1024  # left to the kernel's static shared memory
+
+
+class LaunchPlan(NamedTuple):
+    cols_per_thread: int  # the kernel instance
+    threads: int
+    smem_bytes: int  # dynamic shared memory
+    slots: int  # target rows held in shared memory
+
+
+def launch_plan(q: int, n: int) -> LaunchPlan:
+    """The kernel's launch at Q queries and N targets: the smallest instance
+    whose threads own every column; shared memory for the column and row
+    state (20 bytes a query, 8 a target, as `csrc/lsap.cu::fixed_bytes`) and
+    as many rows of Q | 1 floats as fit the rest."""
+    _check_sizes(q, n)
+    cpt = next(k for k in COLS_PER_THREAD if k * THREADS >= q)
+    fixed = -(-(20 * q + 8 * n) // 16) * 16
+    row = 4 * (q | 1)
+    slots = max(0, min(n, (SMEM_LIMIT - SMEM_RESERVE - fixed) // row))
+    return LaunchPlan(cpt, THREADS, fixed + slots * row, slots)
 
 
 def lsap_plain(cost: torch.Tensor) -> torch.Tensor:
@@ -105,36 +132,47 @@ def _check(cost: torch.Tensor):
     if cost.dtype != torch.float32:
         raise ValueError(f"lsap: cost must be float32, got {cost.dtype}")
     p, q, n = cost.shape
+    _check_sizes(q, n)
+    return p, q, n
+
+
+def _check_sizes(q: int, n: int) -> None:
     if n > q:
         raise ValueError(f"lsap: N={n} targets exceed Q={q} queries")
     if q > MAX_Q:
         raise ValueError(f"lsap: Q={q} queries exceed the kernel's {MAX_Q}")
-    return p, q, n
 
 
 @functools.lru_cache(maxsize=None)
 def _function():
     fn = cuda_build.load("lsap").lsap_f32
-    # cost_t [P, N, Q], out [P, N] int64, P, N, Q, stream
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    # cost [P, Q, N], out [P, N] int64, scratch, P, N, Q, cols_per_thread, slots,
+    # smem_bytes, stream
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def lsap_cuda(cost: torch.Tensor) -> torch.Tensor:
     """The assignment of `lsap_plain` on the card, in one launch: [P, Q, N]
-    f32 CUDA costs -> [P, N] int64. The costs are transposed once on the
-    device so that a target's row is contiguous."""
+    f32 CUDA costs (the matcher's contiguous layout, read as it is) -> [P, N]
+    int64. Rows that may not fit shared memory get a scratch of P x (N -
+    slots) x Q floats."""
     p, q, n = _check(cost)
     if not cost.is_cuda:
         raise ValueError(f"lsap_cuda: cost is on {cost.device}, not a CUDA device")
     out = torch.empty((p, n), dtype=torch.long, device=cost.device)
     if p == 0 or n == 0:
         return out
-    cost_t = cost.detach().transpose(1, 2).contiguous()
+    plan = launch_plan(q, n)
+    cost = cost.detach().contiguous()
+    scratch = (torch.empty((p, n - plan.slots, q), device=cost.device)
+               if plan.slots < n else None)
     dev = cost.get_device()
     with torch.cuda.device(dev):
-        err = _function()(cost_t.data_ptr(), out.data_ptr(), p, n, q,
+        err = _function()(cost.data_ptr(), out.data_ptr(),
+                          None if scratch is None else scratch.data_ptr(), p, n, q,
+                          plan.cols_per_thread, plan.slots, plan.smem_bytes,
                           torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"lsap: kernel launch failed with CUDA error {err}")
