@@ -1,6 +1,6 @@
 """Drive the PyTorch port on one NVIDIA card and check it.
 
-    python3 chip_smoke.py [--profile DIR] [--phase3c | --phase12]
+    python3 chip_smoke.py [--profile DIR] [--phase3c | --phase12 | --phase13]
 
 Phases, in order (any failure raises, and the script exits non-zero):
   1. card: name, nvidia-smi name and power limit; TF32 off for f32 checks;
@@ -209,9 +209,35 @@ Phases, in order (any failure raises, and the script exits non-zero):
        bitwise the `data.transforms` route; 12b's eval detections of the
        first task scored by `VocMeanAP` and `LvisMeanAP` beside
        `CocoMeanAP`, each finite and in [0, 1]; a `phase 12: {...}` line.
+  13. tensor and sequence parallelism (`parallel/tp.py`, `parallel/sp.py`,
+     `train_odinw --mesh D,M,S`), the ZiRa preset at full width (Swin-T,
+     BERT-base, d = 256, 6 + 6 layers, 900 queries, f32, remat on) from
+     phase 6's seeded checkpoint and tasks under `build/phase13` (removed
+     after), the ranks processes of `torch.distributed.run` sharing the card
+     over gloo (this script with --phase13-worker); no scaling is claimed:
+     probe. which collectives gloo takes on card tensors, f32 and bf16 (the
+       four the port uses must pass; the finding is in `parallel/dist.py`);
+     13a. `make_mesh(1, 2)` (TP), two ranks: a request and a train step at
+       batch 2 against this process at batch 2, the query choice and the
+       assignments replayed as 11b's: losses within DP_PINNED_TOL[0], every
+       trainable gradient within DP_PINNED_TOL[1] of its scale, the
+       request's logits and boxes within REQUEST_TOL, each TP-sharded
+       weight at half its element count on each rank, `full_state_dict`
+       bitwise the one process's weights; 18, 12 and 1 launches a step and
+       12 `msda_forward` a request on each rank;
+     13b. `make_mesh(1, 1, 2)` (SP): the same checks; each rank's encoder
+       `msda_forward` launched with its chunk of the 20197 queries against
+       the whole value table, the decoder's with 450 of 900 queries, and
+       the first such launch equal to `ms_deform_attn_plain` within F32_TOL;
+     13c. `train_odinw --mesh 1,2,2` on four ranks, 2 tasks x 2 steps, the
+       merge and the eval, against the plain run here: the same images in
+       the same order with as many detections, the merge held by
+       `check_zira_merge`, 18, 12 and 1 launches a step on every rank;
+     each rank's peak memory and step ms beside one process's; a
+     `phase 13: {...}` line.
   Phases 5b, 6, 7c, 8, 10, 11 and 12 check one `lsap` launch and no host
   matcher call (no copy of the costs to the host) per train step.
-  13. result: a `kernels` JSON line, the nvidia-smi line, and last
+  14. result: a `kernels` JSON line, the nvidia-smi line, and last
      `{"ok": true, "device": {...}}`.
 
 It needs a CUDA card and the repository's `ziragroundingdino_torch` package
@@ -3876,6 +3902,481 @@ def phase_replay_and_metrics(build_model, inference, optim, step, tokenizer_mod,
     return result
 
 
+# ---------------------------------------------------------------------------
+# 13. tensor and sequence parallelism: ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+TP_SP_MESHES = (("13a", (1, 2, 1)), ("13b", (1, 1, 2)))  # (label, (data, model, seq))
+TP_SP_ODINW_MESH = (1, 2, 2)  # 13c: four ranks
+TP_SP_ITERS = 2  # 13c: steps a task
+REQUEST_TOL = 1e-4  # 13a/13b: a request's logits and boxes, of max(1, their scale)
+# gloo's collectives on card tensors, probed in this order; the port's are
+# the first four (`parallel/dist.py`)
+GLOO_OPS = ("all_reduce_sum", "all_reduce_max", "all_gather", "broadcast",
+            "all_gather_into_tensor", "reduce_scatter", "reduce_scatter_tensor",
+            "all_to_all_single", "send_recv")
+PORT_COLLECTIVES = GLOO_OPS[:4]
+
+
+def run_ranks13(kind: str, n: int, root: pathlib.Path, start: int = 0, timeout: int = 600,
+                check: bool = True) -> float:
+    """This script's phase 13 worker `kind` in n processes of
+    `torch.distributed.run`, as `run_ranks`; returns the wall seconds."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(n),
+           "--master_addr", "127.0.0.1", "--master_port", str(_free_port()),
+           str(WORKER), "--phase13-worker", kind, "--phase13-root", str(root),
+           "--phase13-start", str(start)]
+    t = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout)
+    (root / f"worker13_{kind}_{start}.log").write_text(res.stdout + res.stderr)
+    if res.returncode and check:
+        tail = "\n".join((res.stdout + res.stderr).splitlines()[-60:])
+        raise AssertionError(f"phase 13 worker {kind} on {n} ranks exited {res.returncode}:\n"
+                             f"{tail}")
+    return time.perf_counter() - t
+
+
+def _gloo_probe_worker(root: pathlib.Path, start: int) -> None:
+    """GLOO_OPS from `start` on, each on f32 and bf16 card tensors of two
+    ranks, a line per (op, dtype) in `probe_rank{r}.txt` before and after
+    it: a collective that aborts the process leaves its "start" line
+    alone."""
+    import torch.distributed as tdist
+
+    rank, n = tdist.get_rank(), tdist.get_world_size()
+    path = root / f"probe_rank{rank}.txt"
+    for i, name in enumerate(GLOO_OPS[start:], start):
+        for dt in (torch.float32, torch.bfloat16):
+            with path.open("a") as f:
+                f.write(f"{i}\t{name}\t{str(dt)[6:]}\tstart\n")
+            x = torch.full((4,), float(rank + 1), device=DP_CARD, dtype=dt)
+            y = torch.zeros(4 * n, device=DP_CARD, dtype=dt)
+            try:
+                if name == "all_reduce_sum":
+                    tdist.all_reduce(x)
+                    got, want = x[0], n * (n + 1) / 2
+                elif name == "all_reduce_max":
+                    tdist.all_reduce(x, op=tdist.ReduceOp.MAX)
+                    got, want = x[0], n
+                elif name == "all_gather":
+                    parts = list(y.chunk(n))
+                    tdist.all_gather(parts, x)
+                    got, want = sum(p[0] for p in parts), n * (n + 1) / 2
+                elif name == "broadcast":
+                    tdist.broadcast(x, src=0)
+                    got, want = x[0], 1
+                elif name == "all_gather_into_tensor":
+                    tdist.all_gather_into_tensor(y, x)
+                    got, want = y[::4].sum(), n * (n + 1) / 2
+                elif name == "reduce_scatter":
+                    tdist.reduce_scatter(x, [x.clone() for _ in range(n)])
+                    got, want = x[0], n * (n + 1) / 2
+                elif name == "reduce_scatter_tensor":
+                    tdist.reduce_scatter_tensor(x, torch.cat([x] * n))
+                    got, want = x[0], n * (n + 1) / 2
+                elif name == "all_to_all_single":
+                    tdist.all_to_all_single(y, torch.cat([x] * n))
+                    got, want = y[::4].sum(), n * (n + 1) / 2
+                else:
+                    if rank == 0:
+                        tdist.send(x, dst=1)
+                        got = want = 1
+                    else:
+                        tdist.recv(x, src=0)
+                        got, want = x[0], 1
+                torch.cuda.synchronize()
+                res = "ok" if float(got) == float(want) else f"wrong: {float(got)} != {want}"
+            except Exception as e:  # the finding is which collectives gloo refuses
+                res = "refused: " + (str(e).splitlines() or [type(e).__name__])[0][:160]
+            with path.open("a") as f:
+                f.write(f"{i}\t{name}\t{str(dt)[6:]}\t{res}\n")
+            if res.startswith("refused"):
+                return  # the group may be out of step: the next launch goes on
+
+
+def gloo_probe(root: pathlib.Path) -> dict:
+    """Which collectives gloo takes on card tensors: GLOO_OPS in launches of
+    two ranks, each from the op after the last one that a launch finished
+    or that ended it (refused or aborting the process)."""
+    found, start = {}, 0
+    while start < len(GLOO_OPS):
+        (root / "probe_rank0.txt").unlink(missing_ok=True)
+        run_ranks13("probe", 2, root, start, timeout=240, check=False)
+        lines = [ln.split("\t") for ln in (root / "probe_rank0.txt").read_text().splitlines()]
+        last = start
+        for i, name, dt, res in lines:
+            found[f"{name}/{dt}"] = "aborts the process" if res == "start" else res
+            last = max(last, int(i))
+        start = last + 1
+    bad = {k: v for k, v in found.items() if k.split("/")[0] in PORT_COLLECTIVES and v != "ok"}
+    if bad:
+        raise AssertionError(f"phase 13: gloo refuses collectives the port uses: {bad}")
+    return found
+
+
+def _finite(t: torch.Tensor) -> torch.Tensor:
+    """The entries no mask set (|x| < 1e6)."""
+    t = t.float()
+    return t[t.abs() < 1e6]
+
+
+class _MsdaRecorder:
+    """Around `ops.msda.ms_deform_attn` (the query-sharded path's call) and
+    the model's own: each call's (value tokens, queries), and the first
+    call's inputs and output where the queries are a chunk of the tokens."""
+
+    def __init__(self):
+        from ziragroundingdino_torch.models import transformer
+        from ziragroundingdino_torch.ops import msda
+
+        self.mods, self.orig = (transformer, msda), msda.ms_deform_attn
+        self.calls, self.first = [], None
+
+    def __call__(self, value, shapes, loc, attn):
+        out = self.orig(value, shapes, loc, attn)
+        self.calls.append((value.shape[1], loc.shape[1]))
+        if self.first is None and loc.shape[1] < value.shape[1] == sum(h * w for h, w in shapes):
+            self.first = tuple(t.detach().clone() for t in (value, loc, attn, out)) + (shapes,)
+        return out
+
+    def __enter__(self):
+        for m in self.mods:
+            m.ms_deform_attn = self
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.mods:
+            m.ms_deform_attn = self.orig
+
+
+def _tp_sp_run(build_model, optim, step, batch, mesh=None, pinned=None) -> dict:
+    """The ZiRa preset at full width (DP_DTYPE, remat, phase 11's seeded
+    weights) on `batch`: one request (the eval forward) and two train steps
+    (the second timed) under `mesh` (sharded by `parallel.tp.shard_model_`,
+    in `sequence_parallel` where it has a seq axis), or in this process
+    alone without one, recording the queries it chose and the
+    assignments it used; with `pinned` (the one process's record) it
+    replays them. Returns the request's detections, the first step's losses
+    and trainable gradients (whole), the launches of each step, the MSDA
+    calls' shapes and the first query-sharded call, the sharded weights'
+    element counts, whether `full_state_dict` is the one process's weights
+    bitwise, step ms and peak memory."""
+    from ziragroundingdino_torch.models import transformer
+    from ziragroundingdino_torch.ops.lsap import lsap_cuda
+    from ziragroundingdino_torch.ops.msda_cuda import msda_backward, msda_forward
+    from ziragroundingdino_torch.parallel import dist, sp, tp
+    from ziragroundingdino_torch.train import criterion
+
+    model = _dp_model(build_model, optim, DP_PRESETS[0], DP_CARD, **REMAT)
+    whole = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    torch.cuda.reset_peak_memory_stats()
+    targets = tp.shard_model_(model, mesh) if mesh is not None else {}
+    params = dict(model.named_parameters())
+    counts = [(params[n].numel(), int(np.prod(params[n].tp.full_shape))) for n in targets]
+    full = tp.full_state_dict(model)
+    full_bitwise = sorted(full) == sorted(whole) and all(torch.equal(v, whole[k])
+                                                         for k, v in full.items())
+    del full
+    ctx = (sp.sequence_parallel(mesh) if mesh is not None and mesh.seq > 1
+           else contextlib.nullcontext())
+    counters = (msda_forward, msda_backward, lsap_cuda)
+    text = {k: batch[k] for k in step.TEXT_KEYS}
+    keeper = _GradKeeper(model)
+    net = step.wrap_ddp(model) if mesh is not None and step.ddp_applies() else model
+    chosen, used = [], []
+    select_topk, match_batch = transformer.select_topk, criterion.match_batch
+
+    # the run's own query choices and assignments (the request's, then each
+    # step's), and with `pinned` the one process's, which the run replays
+    def selected(scores, k):
+        chosen.append(select_topk(scores, k))
+        return (chosen[-1] if pinned is None
+                else pinned["topk_idx"][len(chosen) - 1].to(scores.device))
+
+    def matched(logits, *a, **k):
+        used.append(match_batch(logits, *a, **k))  # the `lsap` launch
+        return (used[-1] if pinned is None
+                else pinned["assignments"][len(used) - 1].to(logits.device))
+
+    launches, ms = [], []
+    transformer.select_topk, criterion.match_batch = selected, matched
+    with ctx, _MsdaRecorder() as rec:
+        try:
+            before = tuple(c.launches for c in counters)
+            with torch.no_grad():
+                out = model(batch["pixels"], batch["mask"], text)
+            request = {k: out[k].float().cpu() for k in ("pred_logits", "pred_boxes")}
+            request_launches = tuple(c.launches - b for c, b in zip(counters, before))
+            for i in range(2):
+                before = tuple(c.launches for c in counters)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                metrics = step.train_step(net, keeper, batch)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t) * 1e3)
+                launches.append(tuple(c.launches - b for c, b in zip(counters, before)))
+                if i == 0:
+                    losses = {k: float(v) for k, v in metrics.items() if k != "grad_norm"}
+                    grads = {n: (params[n].tp.full_of(g.to(DP_CARD)).cpu() if n in targets
+                                 else g) for n, g in keeper.grads.items()}
+        finally:
+            transformer.select_topk, criterion.match_batch = select_topk, match_batch
+    cfg = model.cfg
+    result = {"layers": (cfg.enc_layers, cfg.dec_layers),
+              "request": request, "request_launches": request_launches, "losses": losses,
+              "grads": grads, "launches": launches, "step_ms": ms,
+              "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "msda_calls": rec.calls, "sharded": counts, "full_bitwise": full_bitwise,
+              "topk_idx": [c.cpu() for c in chosen], "assignments": [u.cpu() for u in used],
+              "slots_reordered": (0 if pinned is None else sum(
+                  int((c.cpu() != p).sum()) for c, p in zip(chosen, pinned["topk_idx"]))),
+              "assignments_moved": (0 if pinned is None else sum(
+                  int((u.cpu() != p).sum()) for u, p in zip(used, pinned["assignments"])))}
+    if rec.first is not None:
+        from ziragroundingdino_torch.ops.msda import ms_deform_attn_plain
+
+        value, loc, attn, got, shapes = rec.first
+        want = ms_deform_attn_plain(value.float(), shapes, loc, attn)
+        result["sharded_launch"] = {
+            "value_tokens": value.shape[1], "queries": loc.shape[1],
+            "max_abs_err": float((got.float() - want).abs().max()),
+            "tol": F32_TOL * max(1.0, float(want.abs().max()))}
+    del net, model, keeper
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase13_worker(kind: str, root: pathlib.Path, start: int) -> None:
+    """A rank of phase 13, started by `run_ranks13` over gloo on the shared
+    card: "probe", `_gloo_probe_worker`; "ab", 13a then 13b (`_tp_sp_run`
+    under each TP_SP_MESHES mesh, replaying the one process's queries and
+    assignments); "c", `train_odinw --mesh 1,2,2` with `_StepProbe`.
+    Writes its record to `root/<kind>_rank<r>.pt`."""
+    import os
+
+    from ziragroundingdino_torch import config as pc
+    from ziragroundingdino_torch.data import transforms
+    from ziragroundingdino_torch.models import build_model
+    from ziragroundingdino_torch.parallel import dist
+    from ziragroundingdino_torch.parallel import mesh as pmesh
+    from ziragroundingdino_torch.scripts import train_odinw
+    from ziragroundingdino_torch.text import tokenizer as tokenizer_mod
+    from ziragroundingdino_torch.train import optim, step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = int(os.environ["RANK"])
+    if kind == "probe":
+        import datetime
+
+        import torch.distributed as tdist
+
+        torch.cuda.set_device(DP_CARD)
+        tdist.init_process_group("gloo", init_method="env://", rank=rank,
+                                 world_size=int(os.environ["WORLD_SIZE"]),
+                                 timeout=datetime.timedelta(seconds=60))
+        try:
+            _gloo_probe_worker(root, start)
+        finally:
+            tdist.destroy_process_group()
+        return
+    dist.init_from_env(DP_CARD, "gloo")
+    out = {}
+    if kind == "ab":
+        batch = _dp_inputs(pc, tokenizer_mod, transforms, DP_CARD)
+        pinned = torch.load(root / "pinned.pt")
+        for label, sizes in TP_SP_MESHES:
+            out[label] = _tp_sp_run(build_model, optim, step, batch, pmesh.make_mesh(*sizes),
+                                    pinned)
+    else:
+        spec = json.loads((root / "spec.json").read_text())
+        probe = _StepProbe().install()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            t = time.perf_counter()
+            out["report"] = train_odinw.main(spec["train_args"] + [
+                "--mesh", ",".join(map(str, TP_SP_ODINW_MESH)), "--device", DP_CARD])
+            out["run_s"] = time.perf_counter() - t
+        finally:
+            probe.restore()
+        out.update(probe.record(), peak=torch.cuda.max_memory_allocated())
+    dist.destroy()
+    torch.save(out, root / f"{kind}_rank{rank}.pt")
+
+
+def _request_err(got: dict, want: dict) -> float:
+    return max(float((_finite(got[k]) - _finite(want[k])).abs().max())
+               / max(1.0, float(_finite(want[k]).abs().max())) for k in want)
+
+
+def phase_tensor_sequence_parallel(build_model, optim, step, tokenizer_mod, transforms, pc,
+                                   card_line):
+    """13, the ZiRa preset at full width from phase 6's seeded checkpoint and
+    tasks under `build/phase13` (removed after), ranks sharing the card over
+    gloo (`torch.distributed.run`, this script with --phase13-worker), f32
+    (DP_DTYPE):
+    probe: which collectives gloo takes on card tensors (GLOO_OPS, f32 and
+      bf16; the four the port uses must pass);
+    13a `make_mesh(1, 2)` (TP) and 13b `make_mesh(1, 1, 2)` (SP), two ranks:
+      a request and a train step at batch 2 against this process at batch 2,
+      the query choice and assignments replayed: losses within
+      DP_PINNED_TOL[0], every trainable gradient within DP_PINNED_TOL[1] of
+      its scale, the request's logits and boxes within REQUEST_TOL, the
+      rank's TP-sharded weights at half their element count, and
+      `full_state_dict` bitwise the one process's weights; DP_LAUNCHES a
+      step and 12 `msda_forward` a request on every rank; under SP each
+      rank's encoder `msda_forward` runs its query chunk against the whole
+      value table (the decoder's 450 of 900 queries against the whole
+      memory) and equals `ms_deform_attn_plain` there within phase 3's
+      F32_TOL;
+    13c `train_odinw --mesh 1,2,2`, four ranks, 2 tasks x TP_SP_ITERS steps,
+      the merge and the eval, against the plain run here: the same images
+      in the same order with as many detections, the ZiRa merge held by
+      `check_zira_merge`, DP_LAUNCHES a step on every rank.
+    Each rank's peak memory and step ms beside one process's."""
+    from ziragroundingdino_torch.scripts import train_odinw
+
+    root = pathlib.Path(__file__).resolve().parent / "build" / "phase13"
+    t0 = time.time()
+    before_all, _, _ = write_lifecycle_inputs(build_model, root)
+    overrides = json.loads((root / "overrides.json").read_text())
+    overrides["model"]["compute_dtype"] = DP_DTYPE
+    (root / "overrides.json").write_text(json.dumps(overrides))
+    train_args = lifecycle_args(root, root / "mesh", TP_SP_ITERS, TP_SP_ITERS, 0)
+    (root / "spec.json").write_text(json.dumps({"train_args": train_args}))
+    result = {"card": card_line}
+
+    t = time.time()
+    result["gloo_on_card_tensors"] = gloo_probe(root)
+    result["probe_s"] = time.time() - t
+    log("13 probe: " + json.dumps(result["gloo_on_card_tensors"]))
+
+    # 13a/13b: this process at batch 2, then two ranks each way
+    batch = _dp_inputs(pc, tokenizer_mod, transforms, DP_CARD)
+    ref = _tp_sp_run(build_model, optim, step, batch)
+    torch.save({k: ref[k] for k in ("topk_idx", "assignments")}, root / "pinned.pt")
+    del batch
+    torch.cuda.empty_cache()
+    launch_s = run_ranks13("ab", 2, root)
+    ranks = [torch.load(root / f"ab_rank{r}.pt", weights_only=False) for r in range(2)]
+    result["one_process"] = {"step_ms": ref["step_ms"], "peak_gib": ref["peak_gib"],
+                             "launches": ref["launches"]}
+    enc, dec_layers = ref["layers"]
+    want_launches = (2 * enc + dec_layers, enc + dec_layers, 1)  # remat: the encoder twice
+    failed = []
+    for label, (_, model, seq) in TP_SP_MESHES:
+        recs = []
+        for r, rank in enumerate(ranks):
+            got = rank[label]
+            errs = {k: abs(got["losses"][k] - v) / max(abs(v), 1e-30)
+                    for k, v in ref["losses"].items()}
+            grads = _grad_errors(got["grads"], ref["grads"])
+            rec = {"loss_max_rel_err": max(errs.values()), "worst_losses": _worst(errs),
+                   "grad_max_rel_err": max(grads.values()), "worst_grads": _worst(grads),
+                   "request_max_err": _request_err(got["request"], ref["request"]),
+                   "full_state_dict_bitwise": got["full_bitwise"],
+                   "sharded_weights": len(got["sharded"]),
+                   "sharded_elements": [sum(c[0] for c in got["sharded"]),
+                                        sum(c[1] for c in got["sharded"])],
+                   "launches_per_step": got["launches"],
+                   "own_slots_reordered": got["slots_reordered"],
+                   "own_assignments_moved": got["assignments_moved"],
+                   "request_launches": got["request_launches"],
+                   "step_ms": got["step_ms"], "peak_gib": got["peak_gib"]}
+            if seq > 1:
+                # the request's first encoder and first decoder call
+                n_tok, q = ref["msda_calls"][0][0], ref["msda_calls"][enc][1]
+                chunk, dec = -(-n_tok // seq), -(-q // seq)
+                n = enc + dec_layers
+                rec["msda_calls_of_the_request"] = got["msda_calls"][:n]
+                rec["sharded_launch"] = got.get("sharded_launch")
+                want_calls = [(n_tok, chunk)] * enc + [(n_tok, dec)] * dec_layers
+                if got["msda_calls"][:n] != want_calls:
+                    failed.append(f"{label} rank {r}: MSDA calls {got['msda_calls'][:n]}, "
+                                  f"not {want_calls}")
+                sl = rec["sharded_launch"]
+                if sl is None or sl["max_abs_err"] > sl["tol"] or sl["queries"] != chunk:
+                    failed.append(f"{label} rank {r}: the sharded launch against the plain "
+                                  f"MSDA: {sl}")
+            if model > 1:
+                if not got["sharded"] or any(2 * a != b for a, b in got["sharded"]):
+                    failed.append(f"{label} rank {r}: sharded weights {got['sharded'][:3]}")
+            elif got["sharded"]:
+                failed.append(f"{label} rank {r}: {len(got['sharded'])} weights sharded")
+            if (rec["loss_max_rel_err"] > DP_PINNED_TOL[0]
+                    or rec["grad_max_rel_err"] > DP_PINNED_TOL[1]
+                    or rec["request_max_err"] > REQUEST_TOL or not got["full_bitwise"]
+                    or got["launches"] != [want_launches] * 2
+                    or got["request_launches"][:2] != (enc + dec_layers, 0)):
+                failed.append(f"{label} rank {r} (losses {DP_PINNED_TOL[0]}, gradients "
+                              f"{DP_PINNED_TOL[1]}, request {REQUEST_TOL}): {rec}")
+            recs.append(rec)
+        result[label] = {"mesh": [1, model, seq], "ranks": recs}
+    result["13ab_launch_s"] = launch_s
+    log("13a/13b: " + json.dumps({k: result[k] for k in ("one_process", "13a", "13b")}))
+    if failed:
+        raise AssertionError("13a/13b against one process: " + "; ".join(failed))
+
+    # 13c: the plain driver here, then --mesh 1,2,2 on four ranks
+    probe = _StepProbe().install()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t = time.perf_counter()
+        train_odinw.main(lifecycle_args(root, root / "plain", TP_SP_ITERS, TP_SP_ITERS, 0))
+        plain_s = time.perf_counter() - t
+    finally:
+        probe.restore()
+    plain = probe.record()
+    plain_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.empty_cache()
+    launch_s = run_ranks13("c", 4, root)
+    meshed = [torch.load(root / f"c_rank{r}.pt", weights_only=False) for r in range(4)]
+    steps = TP_SP_ITERS * len(LIFECYCLE_TASKS)
+    for r, rec in enumerate(meshed):
+        if rec["launches"] != [want_launches] * steps:
+            raise AssertionError(f"13c rank {r}: launches a step {rec['launches']}, not "
+                                 f"{want_launches} x {steps}")
+        if rec["report"] != meshed[0]["report"]:
+            raise AssertionError(f"13c: rank {r}'s report {rec['report']}")
+    if plain["launches"] != [want_launches] * steps:
+        raise AssertionError(f"13c plain: launches a step {plain['launches']}")
+    size = float(max(LIFECYCLE_ORIG))
+    evals = [_same_detections(f"13c eval rank {r}", _images([rec["evals"]]),
+                              _images([plain["evals"]]), size, tol=None)
+             for r, rec in enumerate(meshed)]
+    cfg = pc.get_model_config(DP_PRESETS[0])
+    before, merge_err, chain_err = before_all, 0.0, 0.0
+    for name in LIFECYCLE_TASKS:
+        final = torch.load(root / "mesh" / name / "state_final.pt", map_location="cpu",
+                           weights_only=True)["params"]
+        trained = torch.load(root / "mesh" / name / "ckpt" / f"step_{TP_SP_ITERS}.pt",
+                             map_location="cpu", weights_only=True)["model"]
+        merge_err = max(merge_err, check_zira_merge(f"13c task {name}", before, trained,
+                                                    final, cfg))
+        one = torch.load(root / "plain" / name / "state_final.pt", map_location="cpu",
+                         weights_only=True)["params"]
+        if sorted(one) != sorted(final) or any(one[k].shape != v.shape
+                                               for k, v in final.items()):
+            raise AssertionError(f"13c task {name}: the chained state's keys or shapes")
+        chain_err = max(chain_err, max(float((final[k] - v).abs().max())
+                                       for k, v in one.items()))
+        before = final
+    result["13c"] = {
+        "mesh": list(TP_SP_ODINW_MESH), "report": meshed[0]["report"],
+        "plain_report": json.loads((root / "plain" / "result.json").read_text()),
+        "eval": evals[0], "merge_f32_max_rel_err": merge_err,
+        "chained_state_max_abs_diff_vs_plain": chain_err,
+        "step_ms_per_rank": [rec["ms"] for rec in meshed], "step_ms_plain": plain["ms"],
+        "peak_gib_per_rank": [rec["peak"] / 2**30 for rec in meshed],
+        "peak_gib_plain": plain_peak,
+        "launches_per_step": meshed[0]["launches"][0], "run_s_per_rank":
+            [rec["run_s"] for rec in meshed], "plain_run_s": plain_s, "launch_s": launch_s}
+    log("13c: " + json.dumps(result["13c"]))
+    result["phase_s"] = time.time() - t0
+    shutil.rmtree(root, ignore_errors=True)
+    return result
+
+
 def _merged_ms(intervals) -> float:
     """Length of the union of (start, end) intervals in microseconds, in ms."""
     total, end = 0.0, float("-inf")
@@ -3989,12 +4490,21 @@ def main() -> int:
                         help="build the kernels and run phase 12 alone (no result line)")
     parser.add_argument("--phase3c", action="store_true",
                         help="build the kernels and run phase 3c alone (no result line)")
+    parser.add_argument("--phase13", action="store_true",
+                        help="build the kernels and run phase 13 alone (no result line)")
+    parser.add_argument("--phase13-worker", choices=["probe", "ab", "c"], default=None,
+                        help=argparse.SUPPRESS)  # a rank of phase 13, started by run_ranks13
+    parser.add_argument("--phase13-root", type=pathlib.Path, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--phase13-start", type=int, default=0, help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     if args.phase11_worker:
         phase11_worker(args.phase11_worker, args.phase11_root)
+        return 0
+    if args.phase13_worker:
+        phase13_worker(args.phase13_worker, args.phase13_root, args.phase13_start)
         return 0
     from ziragroundingdino_torch import config as pc
     from ziragroundingdino_torch.data import transforms
@@ -4028,6 +4538,10 @@ def main() -> int:
             raise AssertionError(f"no ptxas report for {name}.cu")
     if args.phase3c:
         log("phase 3c: " + json.dumps(phase_lsap(lsap_mod, matcher)))
+        return 0
+    if args.phase13:
+        log("phase 13: " + json.dumps(phase_tensor_sequence_parallel(
+            build_model, optim, step, tokenizer_mod, transforms, pc, card_line)))
         return 0
     if args.phase12:
         count_scipy_calls(matcher)
@@ -4110,6 +4624,17 @@ def main() -> int:
                                       transforms, pc, msda_forward, msda_backward, card_line)
     phase_12 = {"12a_per_iteration": replay["12a"]["launches_per_iteration"],
                 "12b": replay["12b"]["launches"], "12c": replay["12c"]["launches"]}
+    torch.cuda.empty_cache()
+
+    # 13. tensor and sequence parallelism: ranks sharing the card over gloo
+    tp_sp = phase_tensor_sequence_parallel(build_model, optim, step, tokenizer_mod,
+                                           transforms, pc, card_line)
+
+    def phase_13_launches(i):
+        """Each mesh's launches a step on rank 0, the kernel's `i`th count."""
+        return {"13a": tp_sp["13a"]["ranks"][0]["launches_per_step"][0][i],
+                "13b": tp_sp["13b"]["ranks"][0]["launches_per_step"][0][i],
+                "13c": tp_sp["13c"]["launches_per_step"][i]}
 
     # result
     enc, dec = rec["encoder"], rec["decoder"]
@@ -4156,6 +4681,7 @@ def main() -> int:
         "phase_12_launches": {"12a_per_iteration": [it[0] for it in
                                                     phase_12["12a_per_iteration"]],
                               "12b": phase_12["12b"][0], "12c": phase_12["12c"]},
+        "phase_13_launches_per_rank_step": phase_13_launches(0),
         "decoder": {k: dec[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
                                         "max_abs_err", "l2_gather_mb")},
         "decoder_timed_at": "decoder call, bf16 value, B=1 Q=900 S=20197 H=8 D=32 L=P=4",
@@ -4196,6 +4722,7 @@ def main() -> int:
                               "12a_binned_per_iteration": [it[2] for it in
                                                            phase_12["12a_per_iteration"]],
                               "12b": phase_12["12b"][1], "12b_binned": phase_12["12b"][2]},
+        "phase_13_launches_per_rank_step": phase_13_launches(1),
         "device_ms": benc["device_ms"],
         "launch_ms": benc["launch_ms"],
         "by_path": {f"{name} {path}": {k: v for k, v in r.items() if k != "bound_by"}
@@ -4236,6 +4763,7 @@ def main() -> int:
         "phase_12_launches": {"12a_per_iteration": [it[3] for it in
                                                     phase_12["12a_per_iteration"]],
                               "12b": phase_12["12b"][3]},
+        "phase_13_launches_per_rank_step": phase_13_launches(2),
     }]
     log("train_step: " + json.dumps({
         "warm_median_ms": step_ms, "peak_memory_gib": peak / 2**30,
@@ -4273,6 +4801,14 @@ def main() -> int:
               f"on {REPLAY_IMAGE_ITERS} ({len(REPLAY_CLASSES)} categories, 5 boxes); 12b "
               f"train_odinw --shot 1shot, {len(LIFECYCLE_TASKS)} tasks x {FEWSHOT_ITERS} steps "
               f"at batch {LIFECYCLE_BATCH}; 12c one request twice, and the first task's eval"}))
+    log("phase 13: " + json.dumps({
+        **tp_sp,
+        "at": "dualzerorepbranchgroundingdino, Swin-T, BERT-base, d=256, 6+6 layers, 900 "
+              "queries, f32, remat on, 800x1216 bucket; ranks sharing the card over gloo; "
+              "13a --mesh 1,2 and 13b --mesh 1,1,2 at batch 2 against one process at batch "
+              f"2; 13c train_odinw --mesh 1,2,2, {len(LIFECYCLE_TASKS)} tasks x {TP_SP_ITERS} "
+              f"steps at batch {LIFECYCLE_BATCH}, against the plain run; what TP and SP cost "
+              "on one card, no scaling"}))
     log(json.dumps({"kernels": kernels}))
     log(card_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -495,17 +495,26 @@ def test_one_process_is_the_identity():
 
 
 def test_make_mesh_and_the_scripts_refuse_what_is_not_ported(tmp_path, monkeypatch):
-    """`make_mesh` names the launch it expected and refuses the model, seq
-    and pipe axes (ROADMAP Queue 1 item 6); the scripts exit with those
-    messages, not a traceback."""
+    """`make_mesh` refuses what is still left: the pipe axis (ROADMAP Queue 1
+    item 6), and sizes whose product is not the process count, naming the
+    launch it expected; one process makes a mesh of one rank on every axis.
+    The scripts exit with those messages, not a traceback, and refuse a
+    batch that the data axis does not divide; `eval_coco` takes the data
+    axis alone, as the JAX package's."""
     from ziragroundingdino_torch.scripts import eval_coco, train_odinw
 
-    assert pmesh.make_mesh(1) is None and pmesh.make_mesh(-1) is None
+    for sizes in ((1,), (-1,)):
+        m = pmesh.make_mesh(*sizes)
+        assert (m.data, m.model, m.seq) == (1, 1, 1)
+        assert all(size == 1 for _, size, _ in m.axes.values())
+    pdist.set_mesh(None)
     with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         pmesh.make_mesh(2)
-    for kw in (dict(model=2), dict(seq=2), dict(pipe=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
+    for kw in (dict(model=2), dict(seq=2)):
+        with pytest.raises(ValueError, match="torchrun --nproc-per-node 2 .* --mesh 1,"):
             pmesh.make_mesh(1, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
+        pmesh.make_mesh(1, pipe=2)
     assert pmesh.parse_mesh("4") == (4, 1, 1) and pmesh.parse_mesh("2,2,1") == (2, 2, 1)
     for bad in ("0", "1,2,3,4", "a"):
         with pytest.raises(ValueError):
@@ -514,22 +523,27 @@ def test_make_mesh_and_the_scripts_refuse_what_is_not_ported(tmp_path, monkeypat
     monkeypatch.delenv("WORLD_SIZE", raising=False)
     common = ["--checkpoint", "x.pth", "--vocab", "v.txt", "--device", "cpu"]
     train = common + ["--output-dir", str(tmp_path), "--batch-size", "2"]
-    with pytest.raises(SystemExit, match="ROADMAP Queue 1 item 6"):
-        train_odinw.main(train + ["--mesh", "1,2"])
-    with pytest.raises(SystemExit, match="ROADMAP Queue 1 item 6"):
+    with pytest.raises(SystemExit, match="torchrun --nproc-per-node 4 .* --mesh 1,2,2"):
+        train_odinw.main(train + ["--mesh", "1,2,2"])
+    with pytest.raises(SystemExit, match="data axis alone"):
         eval_coco.main(common + ["--json", "a.json", "--image-root", ".", "--mesh", "2,1,2"])
     with pytest.raises(SystemExit, match="torchrun --nproc-per-node 2"):
         train_odinw.main(train + ["--mesh", "2"])
     monkeypatch.setenv("WORLD_SIZE", "1")
     with pytest.raises(SystemExit, match="divisible by the data axis 4"):
         train_odinw.main(train + ["--batch-size", "2", "--mesh", "4"])
+    with pytest.raises(SystemExit, match="divisible by the data axis 3"):
+        train_odinw.main(train + ["--batch-size", "2", "--mesh", "3,2,1"])
     monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
     monkeypatch.setenv("MASTER_PORT", str(free_port()))
     monkeypatch.setenv("RANK", "0")
     with pytest.raises(SystemExit, match="torchrun --nproc-per-node 2"):
         eval_coco.main(common + ["--json", "a.json", "--image-root", ".", "--mesh", "2"])
-    assert not pdist.is_initialized()
-    assert "item 6" in train_odinw.LEFT_OUT
+    monkeypatch.setenv("MASTER_PORT", str(free_port()))
+    with pytest.raises(SystemExit, match="needs 2 processes but this one is 1 of 1"):
+        train_odinw.main(train + ["--mesh", "1,2"])
+    assert not pdist.is_initialized() and pdist.current_mesh() is None
+    assert "item 6" in train_odinw.LEFT_OUT and "pipeline" in train_odinw.LEFT_OUT
 
 
 def test_rank_generators_and_the_eval_hook(tmp_path):

@@ -136,3 +136,105 @@ def job_train_odinw(rank, args):
     from ziragroundingdino_torch.scripts import train_odinw
 
     return train_odinw.main(args + ["--mesh", "2"])
+
+
+# ---------------------------------------------------------------------------
+# tensor and sequence parallelism (`tests/test_torch_tp_sp.py`)
+# ---------------------------------------------------------------------------
+
+
+def sharded_run(model, pcfg, batch, assignments=None, seed=None, mesh=None):
+    """The forward (eval, no gradient) and one train step of `model` on
+    `batch` (numpy), the matcher pinned to `assignments` where given and
+    dropout drawn from a generator seeded `seed` where given: (pred_logits,
+    pred_boxes, losses, the trainable gradients whole). Under `mesh` the
+    model is sharded first (`parallel.tp.shard_model_`) and both run in
+    `sequence_parallel` where it has a seq axis; the step goes through DDP
+    where the gradient axis has more than one rank, as the trainer's."""
+    import contextlib
+
+    from ziragroundingdino_torch.parallel import sp, tp
+
+    poptim.set_trainable(model, poptim.trainable_patterns_for_cfg(pcfg),
+                         freeze_all=pcfg.freeze_all)
+    if mesh is not None:
+        tp.shard_model_(model, mesh)
+    ctx = (sp.sequence_parallel(mesh) if mesh is not None and mesh.seq > 1
+           else contextlib.nullcontext())
+    t = {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
+    with ctx:
+        with torch.no_grad():
+            out = model(t["pixels"], t["mask"], {k: t[k] for k in pstep.TEXT_KEYS})
+        net = pstep.wrap_ddp(model) if mesh is not None and pstep.ddp_applies() else model
+        rec = GradRecorder(model)
+        gen = None if seed is None else torch.Generator().manual_seed(seed)
+        orig = pcrit.match_batch
+        if assignments is not None:
+            rows = torch.from_numpy(np.concatenate(assignments)).long()
+            pcrit.match_batch = lambda *a, **k: rows
+        try:
+            metrics = pstep.train_step(net, rec, t, gen)
+        finally:
+            pcrit.match_batch = orig
+    grads = {}
+    for n, g in rec.grads.items():
+        p = rec.params[n]
+        grads[n] = None if g is None else (p.tp.full_of(g) if tp.is_sharded(p) else g)
+    losses = {k: v.item() for k, v in metrics.items() if k != "grad_norm"}
+    return out["pred_logits"], out["pred_boxes"], out["topk_idx"], losses, grads
+
+
+class MsdaShapes:
+    """A stand-in for MSDA where the model calls it (`models.transformer`,
+    and `ops.msda` for the query-sharded path) that records each call's
+    (value tokens, queries) and runs the op."""
+
+    def __init__(self):
+        from ziragroundingdino_torch.models import transformer
+        from ziragroundingdino_torch.ops import msda
+
+        self.mods, self.orig, self.calls = (transformer, msda), msda.ms_deform_attn, []
+
+    def __call__(self, value, shapes, loc, attn):
+        self.calls.append((value.shape[1], loc.shape[1]))
+        return self.orig(value, shapes, loc, attn)
+
+    def __enter__(self):
+        for m in self.mods:
+            m.ms_deform_attn = self
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.mods:
+            m.ms_deform_attn = self.orig
+
+
+def job_tp_sp(rank, sizes, cases, odinw_args=None):
+    """Each case's `sharded_run` on a `make_mesh(*sizes)` of the ranks, then
+    `train_odinw --mesh` of the same sizes where `odinw_args` are given:
+    ({label: (pred_logits, pred_boxes, topk_idx, losses, gradients,
+    {sharded weight: (local elements, whole elements)}, whether
+    `full_state_dict` gave the loaded weights back bitwise, each MSDA call's
+    (value tokens, queries))}, the driver's report)."""
+    from ziragroundingdino_torch.parallel import mesh as pmesh
+    from ziragroundingdino_torch.parallel import tp
+
+    mesh = pmesh.make_mesh(*sizes)
+    out = {}
+    for label, pcfg, sd, batch, assignments, seed in cases:
+        model = build_model(pcfg, device="cpu", dtype="float32")
+        model.load_state_dict(sd)
+        with MsdaShapes() as shapes:
+            res = sharded_run(model, pcfg, batch, assignments, seed, mesh)
+        counts = {n: (p.numel(), int(np.prod(p.tp.full_shape)))
+                  for n, p in model.named_parameters() if tp.is_sharded(p)}
+        model.load_state_dict(sd)
+        whole = tp.full_state_dict(model)
+        same = sorted(whole) == sorted(sd) and all(torch.equal(whole[k], v) for k, v in sd.items())
+        out[label] = res + (counts, same, shapes.calls)
+    report = None
+    if odinw_args is not None:
+        from ziragroundingdino_torch.scripts import train_odinw
+
+        report = train_odinw.main(odinw_args + ["--mesh", ",".join(map(str, sizes))])
+    return out, report

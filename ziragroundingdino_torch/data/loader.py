@@ -139,8 +139,9 @@ class DataLoader:
     batch k of an uninterrupted run: a mid-task resume sees the same data.
     `batch_size` is the global batch; with `shard_count` > 1 this loader
     yields shard `shard_rank`'s contiguous slice of every global batch
-    (both default to the process group's rank and size, `parallel.dist`, as
-    the JAX package's take `jax.process_index()` / `process_count()`).
+    (both default to the data axis's rank and size, `parallel.dist`, as
+    the JAX package's take `jax.process_index()` / `process_count()`; the
+    model and seq ranks of one replica load the same images).
     Eval pads the last batch with copies of its last sample and says how
     many are real in `real_count`; a shard's slice of it says how many of
     the slice are, and pads to the bucket of the whole global batch (the
@@ -163,8 +164,8 @@ class DataLoader:
         shard_rank: Optional[int] = None,
         shard_count: Optional[int] = None,
     ):
-        shard_rank = dist.process_index() if shard_rank is None else shard_rank
-        shard_count = dist.process_count() if shard_count is None else shard_count
+        shard_rank = dist.data_rank() if shard_rank is None else shard_rank
+        shard_count = dist.data_size() if shard_count is None else shard_count
         if batch_size % shard_count:
             raise ValueError(f"global batch {batch_size} not divisible by {shard_count} shards")
         self.shard_rank, self.shard_count = shard_rank, shard_count

@@ -74,9 +74,10 @@ def inference_on_dataset(
     synchronised) over the images after the first `num_warmup` batches.
 
     Under data parallelism the loader yields this rank's slice of every
-    global batch (`data.loader.DataLoader`); rank 0 gathers every rank's
-    images, puts them back in the global order and scores them, so the
-    metrics are the one-process run's, and every rank returns them. The
+    global batch (`data.loader.DataLoader`); data rank 0 gathers every data
+    rank's images, puts them back in the global order and scores them, so
+    the metrics are the one-process run's, and every rank returns them (the
+    model and seq ranks of a replica run the same images with it). The
     time is then the slowest rank's, over every rank's images
     (`parallel/sharded_eval.py` of the JAX package: the reference's DDP
     eval with all-gathered predictions, `util/misc.py:173-217`)."""

@@ -31,10 +31,15 @@ def zero_loss(x: torch.Tensor) -> torch.Tensor:
     return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def _self_kd(x: torch.Tensor, use: bool) -> torch.Tensor:
-    # a plain mean: under data parallelism every rank's x has one shape, so
-    # the ranks' mean of it (DDP's) is the global batch's
-    return x.float().abs().mean() if use else zero_loss(x)
+def _self_kd(x: torch.Tensor, use: bool, shard=None) -> torch.Tensor:
+    """The self-KD L1 of x. A plain mean: under data parallelism every
+    rank's x has one shape, so the ranks' mean of it (DDP's) is the global
+    batch's. Under sequence parallelism (`shard`, x this rank's chunk of the
+    tokens, which may hold padding) the sum over the real tokens over their
+    global count (`parallel.sp.TokenShard.mean`)."""
+    if not use:
+        return zero_loss(x)
+    return x.float().abs().mean() if shard is None else shard.mean(x.float().abs())
 
 
 class _Gate(nn.Module):
@@ -83,9 +88,9 @@ class Adapter(CetBranch):
                                  init="zeros")
         self.gate = _Gate(embed_dim, gate_base_scale=gate_base_scale)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor, shard=None) -> Tuple[torch.Tensor, torch.Tensor]:
         y = self.adapter_up(torch.relu(self.adapter_down(x)))
-        return (y * self.gate(x)).to(y.dtype), _self_kd(x, self.use_self_kd)
+        return (y * self.gate(x)).to(y.dtype), _self_kd(x, self.use_self_kd, shard)
 
 
 class LinearAdapter(CetBranch):

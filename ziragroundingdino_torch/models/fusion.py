@@ -17,8 +17,10 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.distributed import ReduceOp
 
 from ziragroundingdino_torch.models.layers import NEG_INF, LayerNorm, Linear, drop_path, dropout
+from ziragroundingdino_torch.parallel import dist
 
 
 class BiMultiHeadAttention(nn.Module):
@@ -44,7 +46,13 @@ class BiMultiHeadAttention(nn.Module):
         mask_v: Optional[torch.Tensor] = None,  # [B, Nv] True = valid
         mask_l: Optional[torch.Tensor] = None,  # [B, Nl] True = valid
         generator: Optional[torch.Generator] = None,
+        shard=None,  # `parallel.sp.TokenShard` of v's tokens under sequence parallelism
     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """With `shard`, v and mask_v are this rank's chunk of the image
+        tokens: the softmax over Nv and the text output are taken across
+        the seq ranks (max, then the sum of the exponentials, then the
+        partial products, each all-reduced), so the text output is the
+        same on every rank; dropout draws at the unsharded shape."""
         h = self.num_heads
         hd = self.embed_dim // h
         cd = self.compute_dtype or v.dtype
@@ -62,15 +70,23 @@ class BiMultiHeadAttention(nn.Module):
         logits_l = logits
         if mask_v is not None:
             logits_l = logits_l.masked_fill(~mask_v[:, None, :, None], NEG_INF)
-        attn_l = torch.softmax(logits_l, dim=-2)
+        if shard is None:
+            attn_l = torch.softmax(logits_l, dim=-2)
+        else:
+            top = dist.reduced(logits_l.detach().amax(-2, keepdim=True), shard.group,
+                               ReduceOp.MAX)
+            e = torch.exp(logits_l - top)
+            attn_l = e / dist.all_reduce_sum(e.sum(-2, keepdim=True), "seq")
         if mask_l is not None:
             logits = logits.masked_fill(~mask_l[:, None, None, :], NEG_INF)
         attn_v = torch.softmax(logits, dim=-1)
-        attn_v = dropout(attn_v, self.dropout, generator)
-        attn_l = dropout(attn_l, self.dropout, generator)
+        attn_v = dropout(attn_v, self.dropout, generator, shard, dim=2)
+        attn_l = dropout(attn_l, self.dropout, generator, shard, dim=2)
 
         out_v = torch.matmul(attn_v.to(cd), val_l)  # [B, h, Nv, hd]
         out_l = torch.matmul(attn_l.to(cd).transpose(-1, -2), val_v)  # [B, h, Nl, hd]
+        if shard is not None:
+            out_l = dist.all_reduce_sum(out_l.float(), "seq").to(out_l.dtype)
         out_v = out_v.transpose(1, 2).reshape(v.shape[0], v.shape[1], self.embed_dim)
         out_l = out_l.transpose(1, 2).reshape(l.shape[0], l.shape[1], self.embed_dim)
         return self.out_v_proj(out_v), self.out_l_proj(out_l)
@@ -95,10 +111,11 @@ class BiAttentionBlock(nn.Module):
             self.gamma_v.fill_(self.init_values)
             self.gamma_l.fill_(self.init_values)
 
-    def forward(self, v, l, mask_v=None, mask_l=None, generator=None):
+    def forward(self, v, l, mask_v=None, mask_l=None, generator=None, shard=None):
         v = self.layer_norm_v(v)
         l = self.layer_norm_l(l)
-        delta_v, delta_l = self.attn(v, l, mask_v=mask_v, mask_l=mask_l, generator=generator)
+        delta_v, delta_l = self.attn(v, l, mask_v=mask_v, mask_l=mask_l, generator=generator,
+                                     shard=shard)
         v = v + drop_path(self.gamma_v * delta_v, self.drop_path, generator)
         l = l + drop_path(self.gamma_l * delta_l, self.drop_path, generator)
         return v.to(delta_v.dtype), l.to(delta_l.dtype)

@@ -38,14 +38,21 @@ def xavier_uniform_(t: torch.Tensor, fan_in: int, fan_out: int, gen: torch.Gener
     _uniform_(t, math.sqrt(6.0 / (fan_in + fan_out)), gen)
 
 
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+            shard=None, dim: int = 1) -> torch.Tensor:
     """Inverted dropout (kept entries scaled by 1 / (1 - rate), as the JAX
     package's `Dropout`) with its mask drawn from `generator`; the identity
-    when `generator` is None or `rate` is 0."""
+    when `generator` is None or `rate` is 0. With `shard` (a
+    `parallel.sp.TokenShard`; x is its chunk along `dim`) the mask is drawn
+    at the unsharded shape and the chunk taken, so that it is the one
+    process's."""
     if generator is None or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    shape = x.shape if shard is None else shard.full_shape(x.shape, dim)
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    if shard is not None:
+        mask = shard.take(mask, dim)
     return torch.where(mask, x / keep, 0.0).to(x.dtype)
 
 
@@ -180,6 +187,15 @@ class MultiHeadAttention(nn.Module):
         with torch.no_grad():
             self.in_proj_bias.zero_()
 
+    def in_projections(self, query, key, value, cd):
+        """(q, k, v) in the compute dtype `cd`, each [B, T, E]."""
+        e = self.embed_dim
+        w = self.in_proj_weight.to(cd)
+        bias = self.in_proj_bias.to(cd)
+        return (F.linear(query.to(cd), w[:e], bias[:e]),
+                F.linear(key.to(cd), w[e:2 * e], bias[e:2 * e]),
+                F.linear(value.to(cd), w[2 * e:], bias[2 * e:]))
+
     def forward(
         self,
         query: torch.Tensor,  # [B, Tq, E]
@@ -192,11 +208,7 @@ class MultiHeadAttention(nn.Module):
         e, h = self.embed_dim, self.num_heads
         hd = e // h
         cd = self.compute_dtype or query.dtype
-        w = self.in_proj_weight.to(cd)
-        bias = self.in_proj_bias.to(cd)
-        q = F.linear(query.to(cd), w[:e], bias[:e])
-        k = F.linear(key.to(cd), w[e:2 * e], bias[e:2 * e])
-        v = F.linear(value.to(cd), w[2 * e:], bias[2 * e:])
+        q, k, v = self.in_projections(query, key, value, cd)
 
         def split_heads(t):
             b, s, _ = t.shape

@@ -48,6 +48,7 @@ from ziragroundingdino_torch.models.layers import (
 from ziragroundingdino_torch.models.remat import checkpoint
 from ziragroundingdino_torch.ops.box_ops import inverse_sigmoid
 from ziragroundingdino_torch.ops.msda import ms_deform_attn
+from ziragroundingdino_torch.parallel import sp
 
 SpatialShapes = Tuple[Tuple[int, int], ...]
 
@@ -96,8 +97,18 @@ class MSDeformAttn(nn.Module):
         reference_points: torch.Tensor,  # [B, Q, L, 2] or [B, Q, L, 4] in [0, 1]
         spatial_shapes: SpatialShapes,
         key_padding_mask: Optional[torch.Tensor] = None,  # [B, S] True = valid
+        shard: Optional[sp.TokenShard] = None,
     ) -> torch.Tensor:
+        """`shard`: the encoder's tokens under sequence parallelism (query,
+        reference points, value and mask are this rank's chunk of them). In
+        a `sequence_parallel` context without one (the decoder), the
+        queries are split over the seq ranks here and the output gathered,
+        the value whole (`parallel.sp.msda_query_sharded`)."""
         h, l, p = self.num_heads, self.num_levels, self.num_points
+        gather_out = shard is None and sp.active_mesh() is not None
+        if gather_out:
+            shard = sp.TokenShard(query.shape[1], query.device)
+            query, reference_points = shard.take(query), shard.take(reference_points)
         b, q, _ = query.shape
         s = value.shape[1]
         value = self.value_proj(value)
@@ -118,9 +129,14 @@ class MSDeformAttn(nn.Module):
         else:
             loc = (ref[:, :, None, :, None, :2]
                    + offsets / p * ref[:, :, None, :, None, 2:] * 0.5)
-        out = ms_deform_attn(value.contiguous(), spatial_shapes, loc.contiguous(),
-                             weights.contiguous())
-        return self.output_proj(out)
+        if shard is None:
+            out = ms_deform_attn(value.contiguous(), spatial_shapes, loc.contiguous(),
+                                 weights.contiguous())
+        else:
+            out = sp.msda_query_sharded(value, spatial_shapes, loc, weights, shard,
+                                        value_sharded=not gather_out)
+        out = self.output_proj(out)
+        return shard.gather(out) if gather_out else out
 
 
 class DeformableEncoderLayer(nn.Module):
@@ -141,11 +157,13 @@ class DeformableEncoderLayer(nn.Module):
         self.adapter = (Adapter(e, 64, cfg.encoder_gate_base_scale, cfg.use_self_kd,
                                 compute_dtype=compute_dtype) if cfg.use_adapter else None)
 
-    def forward(self, src, pos, reference_points, spatial_shapes, key_padding_mask):
-        """(src, the adapter's f32 loss, 0 without one)."""
-        src2 = self.self_attn(src + pos, src, reference_points, spatial_shapes, key_padding_mask)
+    def forward(self, src, pos, reference_points, spatial_shapes, key_padding_mask, shard=None):
+        """(src, the adapter's f32 loss, 0 without one); `shard`: the
+        tokens' `sp.TokenShard` under sequence parallelism."""
+        src2 = self.self_attn(src + pos, src, reference_points, spatial_shapes, key_padding_mask,
+                              shard)
         src = self.norm1(src + src2).to(src2.dtype)
-        adapter_out, loss = (self.adapter(src) if self.adapter is not None
+        adapter_out, loss = (self.adapter(src, shard) if self.adapter is not None
                              else (None, zero_loss(src)))
         y = self.linear2(self.act(self.linear1(src)))
         src = src + y
@@ -253,7 +271,9 @@ class FeatureEnhancer(nn.Module):
     """The encoder stack: per layer fusion -> text layer -> deformable layer
     (`transformer_for_adapter.py:563-661`), the first two where the config
     has them. Returns (image memory, text memory, the layers' summed f32
-    adapter loss)."""
+    adapter loss). In a `parallel.sp.sequence_parallel` context each seq
+    rank runs the layers on its chunk of the tokens, and the memory is
+    gathered once after the last layer."""
 
     def __init__(self, cfg: GroundingDINOConfig, compute_dtype: Optional[torch.dtype]):
         super().__init__()
@@ -272,6 +292,10 @@ class FeatureEnhancer(nn.Module):
                 text_token_mask, text_self_attention_masks, position_ids, generator=None):
         cfg = self.cfg
         reference_points = encoder_reference_points(spatial_shapes, valid_ratios)
+        shard = sp.token_shard(src.shape[1], src.device)
+        if shard is not None:
+            src, pos, reference_points = (shard.take(t) for t in (src, pos, reference_points))
+            key_padding_mask = shard.take_mask(key_padding_mask)
         if self.text_layers is not None:
             pos_text = get_sine_pos_embed(position_ids[..., None].float(),
                                           num_pos_feats=cfg.hidden_dim,
@@ -279,14 +303,16 @@ class FeatureEnhancer(nn.Module):
         adapter_loss = zero_loss(src)
         for i, layer in enumerate(self.layers):
             if self.fusion_layers is not None:
-                args = (src, text, key_padding_mask, text_token_mask, generator)
+                args = (src, text, key_padding_mask, text_token_mask, generator, shard)
                 src, text = (checkpoint(self.fusion_layers[i], *args, generator=generator)
                              if cfg.use_checkpoint else self.fusion_layers[i](*args))
             if self.text_layers is not None:
                 text = self.text_layers[i](text, text_self_attention_masks, pos_text, generator)
-            args = (src, pos, reference_points, spatial_shapes, key_padding_mask)
+            args = (src, pos, reference_points, spatial_shapes, key_padding_mask, shard)
             src, loss = checkpoint(layer, *args) if cfg.use_transformer_ckpt else layer(*args)
             adapter_loss = adapter_loss + loss
+        if shard is not None:
+            src = shard.gather(src)
         return src, text, adapter_loss
 
 

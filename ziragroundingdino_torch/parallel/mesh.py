@@ -1,23 +1,65 @@
-"""The device mesh, the port of the JAX package's `parallel/mesh.py::make_mesh`
-(`:25-50`). The port runs the reference's one strategy, data parallelism
-(DDP, `train_net.py:246`): a mesh is its `data` axis over the processes
-that `torchrun` started, one card each. The JAX package's other axes,
-`model` (tensor parallel), `seq` (sequence parallel) and `pipe`, are not
-ported (ROADMAP Queue 1 item 6), nor its `_TP_RULES` / `param_sharding`.
+"""The device mesh, the port of the JAX package's `parallel/mesh.py`
+(`:25-103`). A mesh lays the processes that `torchrun` started out as
+`data x seq x model`, `model` innermost as in JAX (`:46-50`; `pipe`, the
+fourth JAX axis, is not ported: ROADMAP Queue 1 item 6): the process of
+global rank r = (d * seq + s) * model + m has coordinates (d, s, m), and
+every axis has one process group per line of ranks along it
+(`torch.distributed.new_group`, created by every rank in one order).
+`make_mesh` registers the mesh with `parallel.dist`, whose collectives
+then reduce over its axes.
+
+  * `data`: batch sharding, DDP (the reference's only strategy,
+    `train_net.py:246`);
+  * `model`: tensor parallelism, JAX's `_TP_RULES` applied to the port's
+    parameters (`tp_targets`, `parallel/tp.py`);
+  * `seq`: sequence parallelism over the encoder's tokens
+    (`parallel/sp.py`).
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-from typing import Tuple
+import re
+from dataclasses import dataclass, field
+from typing import Dict, Tuple
 
 import torch.distributed as tdist
 
 from ziragroundingdino_torch.parallel import dist
 
-NOT_PORTED = ("tensor, sequence and pipeline parallelism (the mesh's model, seq and pipe "
-              "axes) are not ported yet: ROADMAP Queue 1 item 6")
+PP_NOT_PORTED = ("pipeline parallelism (the mesh's pipe axis) is not ported yet: "
+                 "ROADMAP Queue 1 item 6")
+
+# param-path regexes -> the JAX kernel's sharded dimension, copied rule for
+# rule from the JAX package (`parallel/mesh.py:56-65`; P(None, "model") is
+# dimension 1 of a [in, out] kernel, output features: column-parallel;
+# P("model", None) dimension 0, input features: row-parallel). Matched with
+# `re.search` against the JAX path, as there: `output_dense/kernel$` also
+# matches BERT's `attention_output_dense`.
+_TP_RULES = (
+    (r"linear1/kernel$", 1),
+    (r"linear2/kernel$", 0),
+    (r"intermediate_dense/kernel$", 1),
+    (r"output_dense/kernel$", 0),
+    (r"in_proj_kernel$", 1),
+    (r"qkv/kernel$", 1),
+    (r"mlp_fc1/kernel$", 1),
+    (r"mlp_fc2/kernel$", 0),
+)
+
+
+@dataclass
+class Mesh:
+    """Axis sizes, this process's coordinates, and `axes`: {"data",
+    "model", "seq", "grad" (data x seq): (process group, size, rank in it)};
+    a group of None is the default group, and an axis of one rank has
+    none."""
+
+    data: int = 1
+    model: int = 1
+    seq: int = 1
+    axes: Dict[str, tuple] = field(default_factory=dict)
 
 
 def parse_mesh(spec: str) -> Tuple[int, int, int]:
@@ -30,53 +72,128 @@ def parse_mesh(spec: str) -> Tuple[int, int, int]:
     return sizes[0], sizes[1], sizes[2]
 
 
-def make_mesh(data: int = -1, model: int = 1, seq: int = 1, pipe: int = 1):
-    """The `data` axis over every process of the group (`data=-1`: all of
-    them), checked against the processes there are; returns the group that
-    the axis reduces over (the default group). `model`, `seq` or `pipe`
-    above 1 raise NotImplementedError."""
-    if max(model, seq, pipe) > 1:
+def _launch(data: int, model: int, seq: int) -> str:
+    n = data * model * seq
+    spec = f"{data},{model},{seq}" if model * seq > 1 else f"{data}"
+    return (f"torchrun --nproc-per-node {n} -m ziragroundingdino_torch.scripts.<script> "
+            f"--mesh {spec} ...")
+
+
+def make_mesh(data: int = -1, model: int = 1, seq: int = 1, pipe: int = 1) -> Mesh:
+    """The `data x seq x model` mesh over every process of the group
+    (`data=-1`: the processes that `model * seq` leaves), checked against
+    the processes there are, with one process group per line of each axis
+    of more than one rank; registered with `parallel.dist`. `pipe` above 1
+    raises NotImplementedError."""
+    if pipe > 1:
         raise NotImplementedError(f"mesh data={data} model={model} seq={seq} pipe={pipe}: "
-                                  + NOT_PORTED)
+                                  + PP_NOT_PORTED)
     n = dist.process_count()
+    fixed = model * seq
     if data == -1:
-        data = n
-    if data != n:
+        if n % fixed:
+            raise ValueError(f"{n} processes not divisible by model*seq={fixed}")
+        data = n // fixed
+    if data * fixed != n:
         raise ValueError(
-            f"mesh data={data} needs {data} processes but this one is 1 of {n}"
-            f"{'' if dist.is_initialized() else ' (no process group)'}: launch it as "
-            f"`torchrun --nproc-per-node {data} -m ziragroundingdino_torch.scripts.<script> "
-            f"--mesh {data} ...`, one process per card")
-    return tdist.group.WORLD if dist.is_initialized() else None
+            f"mesh data={data} model={model} seq={seq} needs {data * fixed} processes but "
+            f"this one is 1 of {n}{'' if dist.is_initialized() else ' (no process group)'}: "
+            f"launch it as `{_launch(data, model, seq)}`")
+    r = dist.process_index()
+    d, s, m = r // (seq * model), r // model % seq, r % model
+
+    def rank_of(d_, s_, m_):
+        return (d_ * seq + s_) * model + m_
+
+    lines = {  # axis: (its size, this rank's coordinate, every line's ranks)
+        "data": (data, d, [[rank_of(i, s_, m_) for i in range(data)]
+                           for s_ in range(seq) for m_ in range(model)]),
+        "seq": (seq, s, [[rank_of(d_, i, m_) for i in range(seq)]
+                         for d_ in range(data) for m_ in range(model)]),
+        "model": (model, m, [[rank_of(d_, s_, i) for i in range(model)]
+                             for d_ in range(data) for s_ in range(seq)]),
+        "grad": (data * seq, d * seq + s, [[rank_of(i // seq, i % seq, m_)
+                                             for i in range(data * seq)]
+                                            for m_ in range(model)]),
+    }
+    axes = {}
+    for name, (size, coord, all_lines) in lines.items():
+        if name == "grad" and seq == 1:
+            axes[name] = axes["data"]
+        elif size == 1:
+            axes[name] = (None, 1, 0)
+        elif size == n and name != "grad":  # the whole group
+            axes[name] = (None, n, coord)
+        else:
+            # every rank creates every group, in one order; DDP's own groups
+            # ("grad"), so that its bucket reductions, issued as the backward
+            # goes, never share a group with the seq axis's
+            group = None
+            for ranks in all_lines:
+                g = tdist.new_group(ranks)
+                if r in ranks:
+                    group = g
+            axes[name] = (group, size, coord)
+    mesh = Mesh(data=data, model=model, seq=seq, axes=axes)
+    dist.set_mesh(mesh)
+    return mesh
+
+
+def tp_targets(model, mesh) -> Dict[str, int]:
+    """{parameter name: the torch weight's sharded dimension (0: output
+    features, column-parallel; 1: input features, row-parallel)} of the
+    parameters that the JAX package's `param_sharding` shards on a mesh of
+    `mesh.model` model ranks: each name mapped to its JAX path through the
+    weight bridge (`weights.param_path`), matched against `_TP_RULES`, and kept
+    where the sharded dimension divides evenly (`:79-88` there). Empty when
+    the model axis has one rank."""
+    from ziragroundingdino_torch.weights import param_path
+
+    out: Dict[str, int] = {}
+    if mesh.model <= 1:
+        return out
+    for name, p in model.named_parameters():
+        path = param_path(name)
+        if path is None:
+            continue
+        for pat, jax_dim in _TP_RULES:
+            if re.search(pat, path):
+                dim = 1 - jax_dim  # JAX [in, out] -> torch [out, in]
+                if p.shape[dim] % mesh.model == 0:
+                    out[name] = dim
+                break
+    return out
 
 
 def add_mesh_args(ap: argparse.ArgumentParser, mesh_help: str) -> None:
     ap.add_argument("--mesh", default=None, help=mesh_help)
 
 
-def init_mesh(args: argparse.Namespace, batch_size: int):
-    """Join the data-parallel group that --mesh names, check its size and the
-    batch against it, and build the kernels once (on rank 0, the others
-    waiting) before any rank loads them. Returns (device, whether this call
-    joined the group); (args.device, False) without --mesh."""
+def init_mesh(args: argparse.Namespace, batch_size: int, data_only: bool = False):
+    """Join the process group that --mesh names, check its sizes against the
+    processes there are and the batch against the data axis, build the mesh,
+    and build the kernels once (on rank 0, the others waiting) before any
+    rank loads them. `data_only`: a driver that takes the data axis alone
+    (`eval_coco`, as in JAX). Returns (device, the mesh or None without
+    --mesh, whether this call joined the group)."""
     if not args.mesh:
-        return args.device, False
+        return args.device, None, False
     try:
         data, model, seq = parse_mesh(args.mesh)
-        if max(model, seq) > 1:
-            raise NotImplementedError(NOT_PORTED)
-    except (ValueError, NotImplementedError) as e:
+        if data_only and max(model, seq) > 1:
+            raise ValueError("this script's --mesh is the data axis alone, as the JAX "
+                             "package's")
+    except ValueError as e:
         raise SystemExit(f"--mesh {args.mesh}: {e}")
     if "WORLD_SIZE" not in os.environ:
-        raise SystemExit(f"--mesh {args.mesh} needs {data} processes: launch it as `torchrun "
-                         f"--nproc-per-node {data} -m ziragroundingdino_torch.scripts.<script> "
-                         f"--mesh {args.mesh} ...`")
+        raise SystemExit(f"--mesh {args.mesh} needs {data * model * seq} processes: launch it "
+                         f"as `{_launch(data, model, seq)}`")
     if batch_size % data:
         raise SystemExit(f"--batch-size {batch_size} must be divisible by the data axis {data}")
     joined = not dist.is_initialized()
     device = dist.init_from_env(args.device)
     try:
-        make_mesh(data=data)
+        mesh = make_mesh(data=data, model=model, seq=seq)
     except ValueError as e:
         if joined:
             dist.destroy()
@@ -87,4 +204,4 @@ def init_mesh(args: argparse.Namespace, batch_size: int):
         if dist.is_main_process():
             cuda_build.build_all()
         dist.barrier()
-    return device, joined
+    return device, mesh, joined

@@ -47,7 +47,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     mesh.add_mesh_args(ap, "data-parallel eval over N processes started by torchrun, one card "
                       "each (--batch-size must divide by N); default: one process")
     args = ap.parse_args(argv)
-    device, joined = mesh.init_mesh(args, args.batch_size)
+    device, _, joined = mesh.init_mesh(args, args.batch_size, data_only=True)
     try:
         return _run(args, device)
     finally:

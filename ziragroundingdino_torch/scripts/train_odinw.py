@@ -22,7 +22,15 @@ Data-parallel over N cards, one process each:
 Each rank trains on its slice of every global batch (DDP), computing what
 one process computes on the whole batch; rank 0 writes the checkpoints, the
 chained states and the report, and every rank writes its log
-(`<output-dir>/log.txt`, `log.rank{r}.txt`).
+(`<output-dir>/log.txt`, `log.rank{r}.txt`). Tensor and sequence parallel
+over M x S processes a replica (`--mesh D,M,S`, D * M * S processes):
+
+    torchrun --nproc-per-node 4 -m ziragroundingdino_torch.scripts.train_odinw \
+        --mesh 1,2,2 ...
+
+shards the weights that the JAX package's `_TP_RULES` name over the model
+axis (`parallel/tp.py`) and the encoder's tokens over the seq axis
+(`parallel/sp.py`); the checkpoints and chained states hold whole weights.
 
 As the JAX driver, it trains with remat on (`use_checkpoint` and
 `use_transformer_ckpt`: the fusion and deformable encoder layers are
@@ -42,8 +50,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-LEFT_OUT = ("Not ported yet: tensor and sequence parallelism (--mesh's model and seq axes, "
-            "ROADMAP Queue 1 item 6).")
+LEFT_OUT = ("Not ported yet: pipeline parallelism (the JAX mesh's pipe axis, ROADMAP Queue 1 "
+            "item 6).")
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -92,8 +100,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' to run on the CPU)")
     mesh.add_mesh_args(ap, "'data[,model[,seq]]' axis sizes, e.g. '8': data parallel over 8 "
-                      "processes started by torchrun, one card each (model and seq, tensor "
-                      "and sequence parallelism, are not ported); default: one process")
+                      "processes started by torchrun, one card each; '1,2,2': tensor "
+                      "parallel over 2 and sequence parallel over 2 (4 processes); default: "
+                      "one process")
     return ap.parse_args(argv)
 
 
@@ -124,12 +133,15 @@ def check_stamp(args: argparse.Namespace, write: bool = True) -> None:
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
-    from ziragroundingdino_torch.parallel import mesh
+    from ziragroundingdino_torch.parallel import mesh, sp
 
     args = parse_args(argv)
-    device, joined = mesh.init_mesh(args, args.batch_size)
+    device, the_mesh, joined = mesh.init_mesh(args, args.batch_size)
     try:
-        return _run(args, device)
+        if the_mesh is not None and the_mesh.seq > 1:  # JAX's `:144-151`
+            with sp.sequence_parallel(the_mesh):
+                return _run(args, device, the_mesh)
+        return _run(args, device, the_mesh)
     finally:
         if joined:
             from ziragroundingdino_torch.parallel import dist
@@ -137,7 +149,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
             dist.destroy()
 
 
-def _run(args: argparse.Namespace, device) -> Dict[str, float]:
+def _run(args: argparse.Namespace, device, the_mesh=None) -> Dict[str, float]:
     from ziragroundingdino_torch.parallel import dist
     from ziragroundingdino_torch.utils.io import setup_logger
 
@@ -185,6 +197,11 @@ def _run(args: argparse.Namespace, device) -> Dict[str, float]:
                     **model_ov)
     model, tokenizer, cfg = lm.model, lm.tokenizer, lm.cfg
     device = lm.device
+    if the_mesh is not None and the_mesh.model > 1:  # JAX's `:218-219`
+        from ziragroundingdino_torch.parallel import tp
+
+        log.info("tensor parallel: %d weights sharded over %d model ranks",
+                 len(tp.shard_model_(model, the_mesh)), the_mesh.model)
     dcfg = DataConfig(**data_ov)
     rng = np.random.RandomState(args.seed)
 

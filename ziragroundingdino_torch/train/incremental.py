@@ -272,6 +272,9 @@ def run_replay_phase(state: IncrementalState, model: GroundingDINO,
             for p in params:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+            # under sequence parallelism an image loss's gradients are the
+            # seq ranks' shares (`parallel/sp.py`); the text loss's are equal
+            dist.mean_over_ranks_([p.grad for p in params], "seq")
             opt.step()
             opt.zero_grad(set_to_none=True)
         if (it + 1) % 20 == 0 or it == 0:

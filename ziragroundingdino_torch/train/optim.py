@@ -22,7 +22,7 @@ import torch
 from torch import nn
 
 from ziragroundingdino_torch.config import OptimizerConfig, ScheduleConfig
-from ziragroundingdino_torch.parallel import dist
+from ziragroundingdino_torch.parallel import dist, tp
 
 # the reference's 'unfreeze "adapter"-named params'; the port's parameter
 # names use the same vocabulary (rep_linear_adapter, input_proj_conv_adapter)
@@ -119,11 +119,22 @@ def make_schedule(cfg: ScheduleConfig) -> Callable[[int], float]:
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float,
+                         sharded: Sequence[bool] = ()) -> torch.Tensor:
     """Scale the gradients in place by min(1, max_norm / ||g||), ||g|| the
     global L2 norm over all of them, and return ||g|| (as the JAX package's
-    clip: no epsilon is added to the norm, unlike `clip_grad_norm_`)."""
-    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    clip: no epsilon is added to the norm, unlike `clip_grad_norm_`). Under
+    tensor parallelism a gradient flagged in `sharded` is this model rank's
+    shard of one: their squares are summed over the model axis, so each
+    shard counts once and each replicated gradient once."""
+    norms = torch.stack([torch.linalg.vector_norm(g) for g in grads])
+    if any(sharded):
+        flag = torch.tensor(list(sharded), device=norms.device)
+        group = dist.axis("model")[0]
+        tp_sq = dist.reduced(norms[flag].square().sum(), group)
+        norm = torch.sqrt(norms[~flag].square().sum() + tp_sq)
+    else:
+        norm = torch.linalg.vector_norm(norms)
     if max_norm:
         scale = torch.clamp(max_norm / norm, max=1.0)
         for g in grads:
@@ -137,6 +148,17 @@ def ema_update(ema: Dict[str, torch.Tensor], params: Dict[str, torch.Tensor],
     """ema = decay * ema + (1 - decay) * params, in place (`util/ema.py`)."""
     for n, e in ema.items():
         e.mul_(decay).add_(params[n].detach(), alpha=1.0 - decay)
+
+
+def _whole(p: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """A tensor shaped as parameter `p`, whole where `p` is a tensor-parallel
+    shard (a collective over the model axis): what a checkpoint holds."""
+    return p.tp.full_of(t) if tp.is_sharded(p) else t
+
+
+def _local(p: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """`_whole`'s inverse: this model rank's slice of a checkpoint's tensor."""
+    return p.tp.local_of(t) if tp.is_sharded(p) else t
 
 
 class Optimizer:
@@ -168,6 +190,8 @@ class Optimizer:
         self.mini_step = 0  # calls accumulated since the last update
         self.params = {n: p for n, p in model.named_parameters() if p.requires_grad}
         self.device = next(model.parameters()).device
+        # AdamW's state keys: the parameters' places in its groups
+        self._by_index: Dict[int, torch.Tensor] = {}
         factor = lr_factor_fn(cfg.lr_factors)
         groups: Dict[float, list] = {}
         for n, p in self.params.items():
@@ -177,6 +201,8 @@ class Optimizer:
             self.adamw = torch.optim.AdamW(
                 [{"params": ps, "lr": cfg.lr * f} for f, ps in sorted(groups.items())],
                 lr=cfg.lr, betas=cfg.betas, eps=1e-8, weight_decay=cfg.weight_decay)
+            self._by_index = dict(enumerate(p for g in self.adamw.param_groups
+                                            for p in g["params"]))
             self.schedule = torch.optim.lr_scheduler.LambdaLR(self.adamw,
                                                               make_schedule(schedule))
         self.grad_clip = cfg.grad_clip
@@ -206,14 +232,15 @@ class Optimizer:
                 # decays it and its moments as optax's does
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params.values()]
+        sharded = [tp.is_sharded(p) for p in self.params.values()]
         self.mini_step += 1
         if self.mini_step < self.batch_size_scale:
-            norm = clip_by_global_norm_([g / self.mini_step for g in grads], 0.0)
+            norm = clip_by_global_norm_([g / self.mini_step for g in grads], 0.0, sharded)
         else:
             if self.batch_size_scale > 1:
                 for g in grads:
                     g.div_(self.batch_size_scale)
-            norm = clip_by_global_norm_(grads, self.grad_clip)
+            norm = clip_by_global_norm_(grads, self.grad_clip, sharded)
             self.adamw.step()
             self.schedule.step()
             self.adamw.zero_grad(set_to_none=True)
@@ -232,7 +259,7 @@ class Optimizer:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         dist.mean_over_ranks_([p.grad for p in self.params.values()])
-        return {n: p.grad.detach().clone() for n, p in self.params.items()}
+        return {n: _whole(p, p.grad.detach().clone()) for n, p in self.params.items()}
 
     def state_dict(self) -> Dict:
         """AdamW's moments and step counts, the schedule's step and the EMA:
@@ -241,10 +268,14 @@ class Optimizer:
         (the calls since the last update and their gradients), so that a
         checkpoint taken between updates resumes bitwise. Under DDP every
         rank calls it at once (`_reduced_accumulation`)."""
+        ema = (None if self.ema is None
+               else {n: _whole(self.params[n], e) for n, e in self.ema.items()})
         if not self.params:
-            return {"adamw": None, "schedule": None, "ema": self.ema}
-        state = {"adamw": self.adamw.state_dict(), "schedule": self.schedule.state_dict(),
-                 "ema": self.ema}
+            return {"adamw": None, "schedule": None, "ema": ema}
+        adamw = self.adamw.state_dict()
+        adamw["state"] = {i: {k: _whole(self._by_index[i], v) if k != "step" else v
+                              for k, v in st.items()} for i, st in adamw["state"].items()}
+        state = {"adamw": adamw, "schedule": self.schedule.state_dict(), "ema": ema}
         if self.batch_size_scale > 1:
             state["accumulation"] = {"mini_step": self.mini_step,
                                      "grads": self._reduced_accumulation()
@@ -254,16 +285,20 @@ class Optimizer:
     def load_state_dict(self, state: Dict) -> None:
         """Restore `state_dict()` of an Optimizer built the same way."""
         if self.adamw is not None:
-            self.adamw.load_state_dict(state["adamw"])
+            adamw = dict(state["adamw"])
+            adamw["state"] = {int(i): {k: _local(self._by_index[int(i)], v) if k != "step" else v
+                                       for k, v in st.items()}
+                              for i, st in adamw["state"].items()}
+            self.adamw.load_state_dict(adamw)
             self.schedule.load_state_dict(state["schedule"])
         if self.batch_size_scale > 1:
             acc = state["accumulation"]
             self.mini_step = acc["mini_step"]
             for n, p in self.params.items():
-                p.grad = None if acc["grads"] is None else acc["grads"][n].clone()
+                p.grad = None if acc["grads"] is None else _local(p, acc["grads"][n]).clone()
         if (self.ema is None) != (state["ema"] is None):
             raise ValueError("the checkpoint's EMA does not match this optimizer's")
         if self.ema is not None:
             with torch.no_grad():
                 for n, e in self.ema.items():
-                    e.copy_(state["ema"][n])
+                    e.copy_(_local(self.params[n], state["ema"][n]))

@@ -95,9 +95,24 @@ class StepLosses(nn.Module):
         return compute_losses(self.model, batch, generator, self.matcher_impl)
 
 
+def ddp_applies() -> bool:
+    """Whether a step goes through DDP: under a process group, unless the
+    mesh's gradient axis (data x seq) has one rank of several processes
+    (tensor parallelism alone: each model rank's gradients are already the
+    step's)."""
+    size = dist.axis("grad")[1]
+    return dist.is_initialized() and (size > 1 or dist.process_count() == 1)
+
+
 def wrap_ddp(model: GroundingDINO, matcher_impl: str = "lsap") -> DistributedDataParallel:
-    """The model's step under DistributedDataParallel, over the process
-    group (`parallel.dist.init_from_env`); call after `optim.set_trainable`,
+    """The model's step under DistributedDataParallel, over the mesh's
+    gradient axis (`parallel.dist.axis("grad")`: data x seq, every process
+    without a mesh). Under sequence parallelism a trainable gradient taken
+    on token-sharded activations is a partial sum, and the seq ranks'
+    gradients add up to the seq size times the step's (`parallel/sp.py`):
+    DDP's mean over data x seq is then the gradient of the global batch's
+    loss. Under tensor parallelism each model rank has its own DDP group,
+    of the ranks that hold its shards. Call after `optim.set_trainable`,
     since DDP hooks only the parameters that require a gradient when it is
     built, and build it anew for each task. It averages the trainable
     gradients over the ranks as the backward makes them, bucket by bucket.
@@ -106,11 +121,14 @@ def wrap_ddp(model: GroundingDINO, matcher_impl: str = "lsap") -> DistributedDat
     `w_noise` gets one only under noisy gating, with a dropout generator),
     which `static_graph` does not allow; the optimizer steps such a
     parameter on zeros."""
+    if not ddp_applies():
+        raise ValueError("a step needs no DDP here: the mesh's gradient axis (data x seq) "
+                         "has one rank, or there is no process group")
     device = next(model.parameters()).device
     return DistributedDataParallel(
         StepLosses(model, matcher_impl),
         device_ids=[device] if device.type == "cuda" else None,
-        find_unused_parameters=True)
+        process_group=dist.axis("grad")[0], find_unused_parameters=True)
 
 
 def train_step(model: Union[GroundingDINO, DistributedDataParallel], optimizer: Optimizer,

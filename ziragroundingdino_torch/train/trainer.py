@@ -17,9 +17,12 @@ uninterrupted run draws there without saving a generator's state.
 
 Under data parallelism (a process group, `parallel.dist`) each rank runs
 the loop on its slice of every global batch through `train.step.wrap_ddp`;
-rank r > 0 draws its own dropout (seeded from (`cfg.seed`, `it`, r)); rank
-0 alone prints, writes `metrics.jsonl` and the checkpoints, and every rank
-waits for the write and resumes from the same file. `eval_fn`, called
+data rank r > 0 draws its own dropout (seeded from (`cfg.seed`, `it`, r));
+the model and seq ranks of one data rank draw alike (`parallel/tp.py`,
+`parallel/sp.py`). Rank 0 alone prints, writes `metrics.jsonl` and the
+checkpoints (every rank takes part in the state dict: tensor-parallel
+shards are gathered), and every rank waits for the write and resumes from
+the same file. `eval_fn`, called
 every `cfg.eval_period` iterations, runs on every rank (the eval is
 sharded too), as the JAX package's eval hook (`trainer.py:151-152`).
 """
@@ -40,7 +43,7 @@ from ziragroundingdino_torch.config import TrainConfig
 from ziragroundingdino_torch.models.groundingdino import GroundingDINO
 from ziragroundingdino_torch.parallel import dist
 from ziragroundingdino_torch.train.optim import Optimizer
-from ziragroundingdino_torch.train.step import train_step, wrap_ddp
+from ziragroundingdino_torch.train.step import ddp_applies, train_step, wrap_ddp
 from ziragroundingdino_torch.utils.events import CommonMetricPrinter
 
 logger = logging.getLogger("ziragroundingdino_torch")
@@ -106,7 +109,8 @@ def iteration_generator(seed: int, it: int, device: torch.device,
                         rank: int = 0) -> torch.Generator:
     """The generator of iteration `it` on data-parallel rank `rank`, a
     function of (seed, it, rank) alone; rank 0's is the one-process run's,
-    and no two ranks share one."""
+    and no two data ranks share one (the model and seq ranks of one data
+    rank do: they draw the masks of one replica)."""
     entropy = [seed, it] if rank == 0 else [seed, it, rank]
     state = np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0]
     return torch.Generator(device=device).manual_seed(int(state) & (2**63 - 1))
@@ -136,7 +140,7 @@ class Trainer:
         self.step_fn = step_fn or functools.partial(train_step, matcher_impl=matcher_impl)
         self.device = next(model.parameters()).device
         self.net = model
-        if dist.is_initialized() and optimizer.params:
+        if ddp_applies() and optimizer.params:
             self.net = wrap_ddp(model, matcher_impl)
         self.eval_fn = eval_fn
         self.eval_results: list = []  # (iteration, eval_fn's metrics)
@@ -164,7 +168,7 @@ class Trainer:
     def _loop(self, start_iter: int, max_iter: int, writer: Optional[JSONLWriter],
               printer: Optional[CommonMetricPrinter]) -> None:
         cfg = self.cfg
-        rank = dist.process_index()
+        rank = dist.data_rank()  # the model and seq ranks of a replica draw alike
         t_data = t_step = 0.0
         t0 = time.perf_counter()
         for it in range(start_iter, max_iter):

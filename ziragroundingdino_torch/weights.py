@@ -274,6 +274,21 @@ def _invert(pat: str, dst: str) -> Tuple["re.Pattern", str]:
 _INVERSE = [(*_invert(pat, dst), layout) for pat, dst, layout in _RULES]
 
 
+_FORWARD = [(re.compile(pat), dst) for pat, dst, _ in _RULES]
+
+
+def param_path(key: str) -> Optional[str]:
+    """The JAX package's parameter path of a state_dict key (the first rule
+    whose torch pattern matches it from its start), or None where no rule
+    maps it (a repeated head, an MoE expert, a BN statistic)."""
+    for pattern, dst in _FORWARD:
+        m = pattern.match(key)
+        if m is not None:
+            path = m.expand(dst)
+            return None if path.startswith("<stats>") else path
+    return None
+
+
 def _to_torch_layout(a: np.ndarray, layout: str) -> np.ndarray:
     if layout == _LIN:
         return a.T
