@@ -215,24 +215,31 @@ Phases, in order (any failure raises, and the script exits non-zero):
      phase 6's seeded checkpoint and tasks under `build/phase13` (removed
      after), the ranks processes of `torch.distributed.run` sharing the card
      over gloo (this script with --phase13-worker); no scaling is claimed:
-     probe. which collectives gloo takes on card tensors, f32 and bf16 (the
-       four the port uses must pass; the finding is in `parallel/dist.py`);
-     13a. `make_mesh(1, 2)` (TP), two ranks: a request and a train step at
-       batch 2 against this process at batch 2, the query choice and the
-       assignments replayed as 11b's: losses within DP_PINNED_TOL[0], every
-       trainable gradient within DP_PINNED_TOL[1] of its scale, the
-       request's logits and boxes within REQUEST_TOL, each TP-sharded
-       weight at half its element count on each rank, `full_state_dict`
-       bitwise the one process's weights; 18, 12 and 1 launches a step and
-       12 `msda_forward` a request on each rank;
+     13a. `make_mesh(1, 2)` (TP), two ranks, after a probe of the port's
+       collectives on f32 and bf16 card tensors (PORT_COLLECTIVES; one
+       that gloo refuses fails the phase, named): a request and two AdamW
+       steps at batch 2 against this process at batch 2, the query choice
+       and the assignments replayed as 11b's: the first step's losses
+       within DP_PINNED_TOL[0], every trainable gradient within
+       DP_PINNED_TOL[1] of its scale, the request's logits and boxes within
+       REQUEST_TOL, each TP-sharded weight at half its element count on
+       each rank, the sharded model's `state_dict()` bitwise the one
+       process's weights, the replicated trainable weights bitwise alike on
+       every rank after the steps; 18, 12 and 1 launches a step and 12
+       `msda_forward` a request on each rank;
      13b. `make_mesh(1, 1, 2)` (SP): the same checks; each rank's encoder
        `msda_forward` launched with its chunk of the 20197 queries against
        the whole value table, the decoder's with 450 of 900 queries, and
        the first such launch equal to `ms_deform_attn_plain` within F32_TOL;
      13c. `train_odinw --mesh 1,2,2` on four ranks, 2 tasks x 2 steps, the
-       merge and the eval, against the plain run here: the same images in
-       the same order with as many detections, the merge held by
-       `check_zira_merge`, 18, 12 and 1 launches a step on every rank;
+       merge and the eval, against the plain run here: the first step's
+       losses and gradients within DP_TOL (each run chooses its own queries
+       and assignments, as 11b's), the replicated weights bitwise alike
+       on every rank after each step, the chained states' untrained tensors
+       bitwise and trained ones within CHAIN_TOL (AdamW's floor), the same
+       images in the same order with as many detections, their scores and
+       boxes within CHAIN_EVAL_TOL, the merge held by `check_zira_merge`,
+       18, 12 and 1 launches a step on every rank;
      each rank's peak memory and step ms beside one process's; a
      `phase 13: {...}` line.
   Phases 5b, 6, 7c, 8, 10, 11 and 12 check one `lsap` launch and no host
@@ -2982,9 +2989,10 @@ class _StepProbe:
     `lsap` launches; the first step's losses and the trainable gradients
     its backward left; one step's NCCL kernel launches under torch.profiler
     (`profile_at`) and DDP's bucket count; each eval batch's image ids and
-    detections."""
+    detections; with `replicas`, each step's `_replicas` digests after the
+    update."""
 
-    def __init__(self, profile_at=None):
+    def __init__(self, profile_at=None, replicas=False):
         from ziragroundingdino_torch.eval import evaluator
         from ziragroundingdino_torch.ops.lsap import lsap_cuda
         from ziragroundingdino_torch.ops.msda_cuda import msda_backward, msda_forward
@@ -2994,6 +3002,7 @@ class _StepProbe:
         self.counters = (msda_forward, msda_backward, lsap_cuda)
         self.profile_at = profile_at
         self.ms, self.launches, self.evals = [], [], []
+        self.replicas = [] if replicas else None
         self.losses = self.grads = self.nccl = self.buckets = self.nccl_kernels_traced = None
         self.saved = []
 
@@ -3028,6 +3037,8 @@ class _StepProbe:
         if i == 0:
             self.losses = {k: v.detach().float().cpu() for k, v in metrics.items()
                            if k != "grad_norm"}
+        if self.replicas is not None:
+            self.replicas.append(_replicas(optimizer.params))
         if p is not None:
             from torch.autograd import DeviceType
 
@@ -3066,7 +3077,8 @@ class _StepProbe:
     def record(self) -> dict:
         return {"ms": self.ms, "launches": self.launches, "evals": self.evals,
                 "losses": self.losses, "grads": self.grads, "nccl": self.nccl,
-                "nccl_kernels_traced": self.nccl_kernels_traced, "buckets": self.buckets}
+                "nccl_kernels_traced": self.nccl_kernels_traced, "buckets": self.buckets,
+                "replicas": self.replicas}
 
 
 def _images(evals):
@@ -3910,47 +3922,38 @@ TP_SP_MESHES = (("13a", (1, 2, 1)), ("13b", (1, 1, 2)))  # (label, (data, model,
 TP_SP_ODINW_MESH = (1, 2, 2)  # 13c: four ranks
 TP_SP_ITERS = 2  # 13c: steps a task
 REQUEST_TOL = 1e-4  # 13a/13b: a request's logits and boxes, of max(1, their scale)
-# gloo's collectives on card tensors, probed in this order; the port's are
-# the first four (`parallel/dist.py`)
-GLOO_OPS = ("all_reduce_sum", "all_reduce_max", "all_gather", "broadcast",
-            "all_gather_into_tensor", "reduce_scatter", "reduce_scatter_tensor",
-            "all_to_all_single", "send_recv")
-PORT_COLLECTIVES = GLOO_OPS[:4]
+# the collectives of `parallel/dist.py` and `parallel/tp.py`, probed on card
+# tensors before 13a
+PORT_COLLECTIVES = ("all_reduce_sum", "all_reduce_max", "all_gather", "reduce_scatter",
+                    "broadcast")
+# 13c against the plain driver. `train_odinw`'s defaults: lr 1e-3, x0.1 from
+# 0.4 of a task's steps (so 1e-3, then 1e-4), the freeze weights (the only
+# trained tensors a merge keeps) at lr factor 0.2, the branches' scaling
+# init 0.1 (`models/zira.py`). AdamW's update from zero moments is at most
+# ADAM_STEP_MAX lr in size in its first two steps whatever the gradients,
+# so where a gradient element's sign differs between two runs their copies
+# part by at most 2 ADAM_STEP_MAX lr a step. Per task a freeze element
+# parts by 0.2 D from its own steps and by (0.1 + D / 2) D + D (D / 2) from
+# the merge `freeze += scaling * branch` (scaling and branch each within
+# D / 2 of their init, D apart), with D = 2 ADAM_STEP_MAX (1e-3 + 1e-4);
+# tasks add up. Tensors that no task trains stay bitwise.
+ADAM_STEP_MAX = 1.0014  # max |m_hat / sqrt(v_hat)| at steps 1-2, betas (0.9, 0.999)
+CHAIN_D = 2 * ADAM_STEP_MAX * (1e-3 + 1e-4)
+CHAIN_TOL = 2 * (0.2 * CHAIN_D + (0.1 + CHAIN_D / 2) * CHAIN_D + CHAIN_D * CHAIN_D / 2)
+CHAIN_EVAL_TOL = 0.1  # 13c's eval scores and boxes (of the image size): ~3x the readings
 
 
-def run_ranks13(kind: str, n: int, root: pathlib.Path, start: int = 0, timeout: int = 600,
-                check: bool = True) -> float:
-    """This script's phase 13 worker `kind` in n processes of
-    `torch.distributed.run`, as `run_ranks`; returns the wall seconds."""
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(n),
-           "--master_addr", "127.0.0.1", "--master_port", str(_free_port()),
-           str(WORKER), "--phase13-worker", kind, "--phase13-root", str(root),
-           "--phase13-start", str(start)]
-    t = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout)
-    (root / f"worker13_{kind}_{start}.log").write_text(res.stdout + res.stderr)
-    if res.returncode and check:
-        tail = "\n".join((res.stdout + res.stderr).splitlines()[-60:])
-        raise AssertionError(f"phase 13 worker {kind} on {n} ranks exited {res.returncode}:\n"
-                             f"{tail}")
-    return time.perf_counter() - t
-
-
-def _gloo_probe_worker(root: pathlib.Path, start: int) -> None:
-    """GLOO_OPS from `start` on, each on f32 and bf16 card tensors of two
-    ranks, a line per (op, dtype) in `probe_rank{r}.txt` before and after
-    it: a collective that aborts the process leaves its "start" line
-    alone."""
+def _probe_collectives() -> dict:
+    """PORT_COLLECTIVES on f32 and bf16 card tensors of the default group
+    (gloo, ranks sharing the card), each checked; raises naming the first
+    one that gloo refuses or gets wrong."""
     import torch.distributed as tdist
 
     rank, n = tdist.get_rank(), tdist.get_world_size()
-    path = root / f"probe_rank{rank}.txt"
-    for i, name in enumerate(GLOO_OPS[start:], start):
+    found = {}
+    for name in PORT_COLLECTIVES:
         for dt in (torch.float32, torch.bfloat16):
-            with path.open("a") as f:
-                f.write(f"{i}\t{name}\t{str(dt)[6:]}\tstart\n")
             x = torch.full((4,), float(rank + 1), device=DP_CARD, dtype=dt)
-            y = torch.zeros(4 * n, device=DP_CARD, dtype=dt)
             try:
                 if name == "all_reduce_sum":
                     tdist.all_reduce(x)
@@ -3959,59 +3962,52 @@ def _gloo_probe_worker(root: pathlib.Path, start: int) -> None:
                     tdist.all_reduce(x, op=tdist.ReduceOp.MAX)
                     got, want = x[0], n
                 elif name == "all_gather":
-                    parts = list(y.chunk(n))
+                    parts = [torch.empty_like(x) for _ in range(n)]
                     tdist.all_gather(parts, x)
-                    got, want = sum(p[0] for p in parts), n * (n + 1) / 2
-                elif name == "broadcast":
-                    tdist.broadcast(x, src=0)
-                    got, want = x[0], 1
-                elif name == "all_gather_into_tensor":
-                    tdist.all_gather_into_tensor(y, x)
-                    got, want = y[::4].sum(), n * (n + 1) / 2
+                    got, want = sum(q[0] for q in parts), n * (n + 1) / 2
                 elif name == "reduce_scatter":
                     tdist.reduce_scatter(x, [x.clone() for _ in range(n)])
                     got, want = x[0], n * (n + 1) / 2
-                elif name == "reduce_scatter_tensor":
-                    tdist.reduce_scatter_tensor(x, torch.cat([x] * n))
-                    got, want = x[0], n * (n + 1) / 2
-                elif name == "all_to_all_single":
-                    tdist.all_to_all_single(y, torch.cat([x] * n))
-                    got, want = y[::4].sum(), n * (n + 1) / 2
                 else:
-                    if rank == 0:
-                        tdist.send(x, dst=1)
-                        got = want = 1
-                    else:
-                        tdist.recv(x, src=0)
-                        got, want = x[0], 1
+                    tdist.broadcast(x, src=0)
+                    got, want = x[0], 1
                 torch.cuda.synchronize()
-                res = "ok" if float(got) == float(want) else f"wrong: {float(got)} != {want}"
-            except Exception as e:  # the finding is which collectives gloo refuses
-                res = "refused: " + (str(e).splitlines() or [type(e).__name__])[0][:160]
-            with path.open("a") as f:
-                f.write(f"{i}\t{name}\t{str(dt)[6:]}\t{res}\n")
-            if res.startswith("refused"):
-                return  # the group may be out of step: the next launch goes on
-
-
-def gloo_probe(root: pathlib.Path) -> dict:
-    """Which collectives gloo takes on card tensors: GLOO_OPS in launches of
-    two ranks, each from the op after the last one that a launch finished
-    or that ended it (refused or aborting the process)."""
-    found, start = {}, 0
-    while start < len(GLOO_OPS):
-        (root / "probe_rank0.txt").unlink(missing_ok=True)
-        run_ranks13("probe", 2, root, start, timeout=240, check=False)
-        lines = [ln.split("\t") for ln in (root / "probe_rank0.txt").read_text().splitlines()]
-        last = start
-        for i, name, dt, res in lines:
-            found[f"{name}/{dt}"] = "aborts the process" if res == "start" else res
-            last = max(last, int(i))
-        start = last + 1
-    bad = {k: v for k, v in found.items() if k.split("/")[0] in PORT_COLLECTIVES and v != "ok"}
-    if bad:
-        raise AssertionError(f"phase 13: gloo refuses collectives the port uses: {bad}")
+            except Exception as e:
+                raise AssertionError(f"phase 13: gloo refuses {name} on {dt} card tensors: "
+                                     f"{e}") from e
+            if float(got) != float(want):
+                raise AssertionError(f"phase 13: gloo's {name} on {dt} card tensors gave "
+                                     f"{float(got)}, not {want}")
+            found[f"{name}/{str(dt)[6:]}"] = "ok"
     return found
+
+
+def run_ranks13(kind: str, n: int, root: pathlib.Path, timeout: int = 600) -> float:
+    """This script's phase 13 worker `kind` in n processes of
+    `torch.distributed.run`, as `run_ranks`; returns the wall seconds."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(n),
+           "--master_addr", "127.0.0.1", "--master_port", str(_free_port()),
+           str(WORKER), "--phase13-worker", kind, "--phase13-root", str(root)]
+    t = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout)
+    (root / f"worker13_{kind}.log").write_text(res.stdout + res.stderr)
+    if res.returncode:
+        tail = "\n".join((res.stdout + res.stderr).splitlines()[-60:])
+        raise AssertionError(f"phase 13 worker {kind} on {n} ranks exited {res.returncode}:\n"
+                             f"{tail}")
+    return time.perf_counter() - t
+
+
+def _replicas(params: dict) -> dict:
+    """{name: sha256 of its bytes} of the trainable parameters that are not
+    tensor-parallel shards: what every model and seq rank must hold
+    bitwise alike."""
+    import hashlib
+
+    from ziragroundingdino_torch.parallel import tp
+
+    return {n: hashlib.sha256(p.detach().float().cpu().numpy().tobytes()).hexdigest()
+            for n, p in params.items() if p.requires_grad and not tp.is_sharded(p)}
 
 
 def _finite(t: torch.Tensor) -> torch.Tensor:
@@ -4056,11 +4052,14 @@ def _tp_sp_run(build_model, optim, step, batch, mesh=None, pinned=None) -> dict:
     in `sequence_parallel` where it has a seq axis), or in this process
     alone without one, recording the queries it chose and the
     assignments it used; with `pinned` (the one process's record) it
-    replays them. Returns the request's detections, the first step's losses
-    and trainable gradients (whole), the launches of each step, the MSDA
-    calls' shapes and the first query-sharded call, the sharded weights'
-    element counts, whether `full_state_dict` is the one process's weights
-    bitwise, step ms and peak memory."""
+    replays them. The steps are the driver's optimizer's (AdamW at lr 1e-3,
+    clip 0.1). Returns the request's detections, the first step's losses
+    and trainable gradients (whole; this rank's, before the optimizer's
+    mean over the model axis), the launches of each step, the MSDA calls'
+    shapes and the first query-sharded call, the sharded weights' element
+    counts, whether the sharded model's `state_dict()` is the one process's
+    weights bitwise, the replicated trainable weights' digests after the
+    steps (`_replicas`), step ms and peak memory."""
     from ziragroundingdino_torch.models import transformer
     from ziragroundingdino_torch.ops.lsap import lsap_cuda
     from ziragroundingdino_torch.ops.msda_cuda import msda_backward, msda_forward
@@ -4073,7 +4072,7 @@ def _tp_sp_run(build_model, optim, step, batch, mesh=None, pinned=None) -> dict:
     targets = tp.shard_model_(model, mesh) if mesh is not None else {}
     params = dict(model.named_parameters())
     counts = [(params[n].numel(), int(np.prod(params[n].tp.full_shape))) for n in targets]
-    full = tp.full_state_dict(model)
+    full = model.state_dict()
     full_bitwise = sorted(full) == sorted(whole) and all(torch.equal(v, whole[k])
                                                          for k, v in full.items())
     del full
@@ -4081,7 +4080,16 @@ def _tp_sp_run(build_model, optim, step, batch, mesh=None, pinned=None) -> dict:
            else contextlib.nullcontext())
     counters = (msda_forward, msda_backward, lsap_cuda)
     text = {k: batch[k] for k in step.TEXT_KEYS}
-    keeper = _GradKeeper(model)
+    opt = optim.Optimizer(model, optim.OptimizerConfig(lr=1e-3, grad_clip=0.1))
+    first = {}
+
+    def capture():
+        first.update((n, p.grad.detach().float().cpu()) for n, p in opt.params.items()
+                     if p.grad is not None)
+        del opt.step
+        return opt.step()
+
+    opt.step = capture
     net = step.wrap_ddp(model) if mesh is not None and step.ddp_applies() else model
     chosen, used = [], []
     select_topk, match_batch = transformer.select_topk, criterion.match_batch
@@ -4111,14 +4119,14 @@ def _tp_sp_run(build_model, optim, step, batch, mesh=None, pinned=None) -> dict:
                 before = tuple(c.launches for c in counters)
                 torch.cuda.synchronize()
                 t = time.perf_counter()
-                metrics = step.train_step(net, keeper, batch)
+                metrics = step.train_step(net, opt, batch)
                 torch.cuda.synchronize()
                 ms.append((time.perf_counter() - t) * 1e3)
                 launches.append(tuple(c.launches - b for c, b in zip(counters, before)))
                 if i == 0:
                     losses = {k: float(v) for k, v in metrics.items() if k != "grad_norm"}
                     grads = {n: (params[n].tp.full_of(g.to(DP_CARD)).cpu() if n in targets
-                                 else g) for n, g in keeper.grads.items()}
+                                 else g) for n, g in first.items()}
         finally:
             transformer.select_topk, criterion.match_batch = select_topk, match_batch
     cfg = model.cfg
@@ -4127,6 +4135,7 @@ def _tp_sp_run(build_model, optim, step, batch, mesh=None, pinned=None) -> dict:
               "grads": grads, "launches": launches, "step_ms": ms,
               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
               "msda_calls": rec.calls, "sharded": counts, "full_bitwise": full_bitwise,
+              "replicas": _replicas(params),
               "topk_idx": [c.cpu() for c in chosen], "assignments": [u.cpu() for u in used],
               "slots_reordered": (0 if pinned is None else sum(
                   int((c.cpu() != p).sum()) for c, p in zip(chosen, pinned["topk_idx"]))),
@@ -4141,15 +4150,15 @@ def _tp_sp_run(build_model, optim, step, batch, mesh=None, pinned=None) -> dict:
             "value_tokens": value.shape[1], "queries": loc.shape[1],
             "max_abs_err": float((got.float() - want).abs().max()),
             "tol": F32_TOL * max(1.0, float(want.abs().max()))}
-    del net, model, keeper
+    del net, model, opt
     torch.cuda.empty_cache()
     return result
 
 
-def phase13_worker(kind: str, root: pathlib.Path, start: int) -> None:
+def phase13_worker(kind: str, root: pathlib.Path) -> None:
     """A rank of phase 13, started by `run_ranks13` over gloo on the shared
-    card: "probe", `_gloo_probe_worker`; "ab", 13a then 13b (`_tp_sp_run`
-    under each TP_SP_MESHES mesh, replaying the one process's queries and
+    card: "ab", `_probe_collectives`, then 13a and 13b (`_tp_sp_run` under
+    each TP_SP_MESHES mesh, replaying the one process's queries and
     assignments); "c", `train_odinw --mesh 1,2,2` with `_StepProbe`.
     Writes its record to `root/<kind>_rank<r>.pt`."""
     import os
@@ -4166,23 +4175,10 @@ def phase13_worker(kind: str, root: pathlib.Path, start: int) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rank = int(os.environ["RANK"])
-    if kind == "probe":
-        import datetime
-
-        import torch.distributed as tdist
-
-        torch.cuda.set_device(DP_CARD)
-        tdist.init_process_group("gloo", init_method="env://", rank=rank,
-                                 world_size=int(os.environ["WORLD_SIZE"]),
-                                 timeout=datetime.timedelta(seconds=60))
-        try:
-            _gloo_probe_worker(root, start)
-        finally:
-            tdist.destroy_process_group()
-        return
     dist.init_from_env(DP_CARD, "gloo")
     out = {}
     if kind == "ab":
+        out["collectives"] = _probe_collectives()
         batch = _dp_inputs(pc, tokenizer_mod, transforms, DP_CARD)
         pinned = torch.load(root / "pinned.pt")
         for label, sizes in TP_SP_MESHES:
@@ -4190,7 +4186,7 @@ def phase13_worker(kind: str, root: pathlib.Path, start: int) -> None:
                                     pinned)
     else:
         spec = json.loads((root / "spec.json").read_text())
-        probe = _StepProbe().install()
+        probe = _StepProbe(replicas=True).install()
         torch.cuda.reset_peak_memory_stats()
         try:
             t = time.perf_counter()
@@ -4204,6 +4200,12 @@ def phase13_worker(kind: str, root: pathlib.Path, start: int) -> None:
     torch.save(out, root / f"{kind}_rank{rank}.pt")
 
 
+def _replicas_differ(digests: list) -> list:
+    """The names whose `_replicas` digest is not the same on every rank."""
+    return sorted(n for n in set().union(*digests)
+                  if len({d.get(n) for d in digests}) > 1)
+
+
 def _request_err(got: dict, want: dict) -> float:
     return max(float((_finite(got[k]) - _finite(want[k])).abs().max())
                / max(1.0, float(_finite(want[k]).abs().max())) for k in want)
@@ -4215,24 +4217,30 @@ def phase_tensor_sequence_parallel(build_model, optim, step, tokenizer_mod, tran
     tasks under `build/phase13` (removed after), ranks sharing the card over
     gloo (`torch.distributed.run`, this script with --phase13-worker), f32
     (DP_DTYPE):
-    probe: which collectives gloo takes on card tensors (GLOO_OPS, f32 and
-      bf16; the four the port uses must pass);
-    13a `make_mesh(1, 2)` (TP) and 13b `make_mesh(1, 1, 2)` (SP), two ranks:
-      a request and a train step at batch 2 against this process at batch 2,
-      the query choice and assignments replayed: losses within
-      DP_PINNED_TOL[0], every trainable gradient within DP_PINNED_TOL[1] of
-      its scale, the request's logits and boxes within REQUEST_TOL, the
-      rank's TP-sharded weights at half their element count, and
-      `full_state_dict` bitwise the one process's weights; DP_LAUNCHES a
+    13a `make_mesh(1, 2)` (TP) and 13b `make_mesh(1, 1, 2)` (SP), two ranks,
+      after PORT_COLLECTIVES are probed on card tensors (f32 and bf16):
+      a request and two train steps at batch 2 against this process at
+      batch 2, the query choice and assignments replayed: the first step's
+      losses within DP_PINNED_TOL[0], every trainable gradient within
+      DP_PINNED_TOL[1] of its scale, the request's logits and boxes within
+      REQUEST_TOL, the rank's TP-sharded weights at half their element
+      count, the sharded model's `state_dict()` bitwise the one process's
+      weights, every rank's replicated trainable weights bitwise alike
+      after the two AdamW steps; DP_LAUNCHES a
       step and 12 `msda_forward` a request on every rank; under SP each
       rank's encoder `msda_forward` runs its query chunk against the whole
       value table (the decoder's 450 of 900 queries against the whole
       memory) and equals `ms_deform_attn_plain` there within phase 3's
       F32_TOL;
     13c `train_odinw --mesh 1,2,2`, four ranks, 2 tasks x TP_SP_ITERS steps,
-      the merge and the eval, against the plain run here: the same images
-      in the same order with as many detections, the ZiRa merge held by
-      `check_zira_merge`, DP_LAUNCHES a step on every rank.
+      the merge and the eval, against the plain run here: the first step's
+      losses and gradients within DP_TOL (each run its own queries and
+      assignments, as 11b's), every rank's replicated trainable
+      weights bitwise alike after every step, the chained states' tensors
+      that no task trains bitwise the plain run's and the others within
+      CHAIN_TOL, the same images in the same order with as many detections
+      and the scores and boxes within CHAIN_EVAL_TOL, the ZiRa merge held
+      by `check_zira_merge`, DP_LAUNCHES a step on every rank.
     Each rank's peak memory and step ms beside one process's."""
     from ziragroundingdino_torch.scripts import train_odinw
 
@@ -4246,11 +4254,6 @@ def phase_tensor_sequence_parallel(build_model, optim, step, tokenizer_mod, tran
     (root / "spec.json").write_text(json.dumps({"train_args": train_args}))
     result = {"card": card_line}
 
-    t = time.time()
-    result["gloo_on_card_tensors"] = gloo_probe(root)
-    result["probe_s"] = time.time() - t
-    log("13 probe: " + json.dumps(result["gloo_on_card_tensors"]))
-
     # 13a/13b: this process at batch 2, then two ranks each way
     batch = _dp_inputs(pc, tokenizer_mod, transforms, DP_CARD)
     ref = _tp_sp_run(build_model, optim, step, batch)
@@ -4259,6 +4262,7 @@ def phase_tensor_sequence_parallel(build_model, optim, step, tokenizer_mod, tran
     torch.cuda.empty_cache()
     launch_s = run_ranks13("ab", 2, root)
     ranks = [torch.load(root / f"ab_rank{r}.pt", weights_only=False) for r in range(2)]
+    result["gloo_on_card_tensors"] = ranks[0]["collectives"]
     result["one_process"] = {"step_ms": ref["step_ms"], "peak_gib": ref["peak_gib"],
                              "launches": ref["launches"]}
     enc, dec_layers = ref["layers"]
@@ -4274,7 +4278,7 @@ def phase_tensor_sequence_parallel(build_model, optim, step, tokenizer_mod, tran
             rec = {"loss_max_rel_err": max(errs.values()), "worst_losses": _worst(errs),
                    "grad_max_rel_err": max(grads.values()), "worst_grads": _worst(grads),
                    "request_max_err": _request_err(got["request"], ref["request"]),
-                   "full_state_dict_bitwise": got["full_bitwise"],
+                   "state_dict_bitwise": got["full_bitwise"],
                    "sharded_weights": len(got["sharded"]),
                    "sharded_elements": [sum(c[0] for c in got["sharded"]),
                                         sum(c[1] for c in got["sharded"])],
@@ -4311,7 +4315,13 @@ def phase_tensor_sequence_parallel(build_model, optim, step, tokenizer_mod, tran
                 failed.append(f"{label} rank {r} (losses {DP_PINNED_TOL[0]}, gradients "
                               f"{DP_PINNED_TOL[1]}, request {REQUEST_TOL}): {rec}")
             recs.append(rec)
-        result[label] = {"mesh": [1, model, seq], "ranks": recs}
+        differ = _replicas_differ([rank[label]["replicas"] for rank in ranks])
+        if differ:
+            failed.append(f"{label}: the ranks' replicated weights differ after the steps: "
+                          f"{differ[:4]} ({len(differ)})")
+        result[label] = {"mesh": [1, model, seq], "ranks": recs,
+                         "replicated_weights_bitwise_alike": not differ,
+                         "replicated_weights": len(ranks[0][label]["replicas"])}
     result["13ab_launch_s"] = launch_s
     log("13a/13b: " + json.dumps({k: result[k] for k in ("one_process", "13a", "13b")}))
     if failed:
@@ -4332,20 +4342,41 @@ def phase_tensor_sequence_parallel(build_model, optim, step, tokenizer_mod, tran
     launch_s = run_ranks13("c", 4, root)
     meshed = [torch.load(root / f"c_rank{r}.pt", weights_only=False) for r in range(4)]
     steps = TP_SP_ITERS * len(LIFECYCLE_TASKS)
+    failed = []
+    if plain["launches"] != [want_launches] * steps:
+        failed.append(f"plain: launches a step {plain['launches']}")
+    size = float(max(LIFECYCLE_ORIG))
+    first, evals = [], []
     for r, rec in enumerate(meshed):
         if rec["launches"] != [want_launches] * steps:
-            raise AssertionError(f"13c rank {r}: launches a step {rec['launches']}, not "
-                                 f"{want_launches} x {steps}")
+            failed.append(f"rank {r}: launches a step {rec['launches']}, not "
+                          f"{want_launches} x {steps}")
         if rec["report"] != meshed[0]["report"]:
-            raise AssertionError(f"13c: rank {r}'s report {rec['report']}")
-    if plain["launches"] != [want_launches] * steps:
-        raise AssertionError(f"13c plain: launches a step {plain['launches']}")
-    size = float(max(LIFECYCLE_ORIG))
-    evals = [_same_detections(f"13c eval rank {r}", _images([rec["evals"]]),
-                              _images([plain["evals"]]), size, tol=None)
-             for r, rec in enumerate(meshed)]
+            failed.append(f"rank {r}'s report {rec['report']}")
+        errs = {k: abs(float(rec["losses"][k]) - float(v)) / max(abs(float(v)), 1e-30)
+                for k, v in plain["losses"].items()}
+        grads = _grad_errors(rec["grads"], plain["grads"])
+        first.append({"loss_max_rel_err": max(errs.values()), "worst_losses": _worst(errs),
+                      "grad_max_rel_err": max(grads.values()), "worst_grads": _worst(grads)})
+        # each run chooses its own queries and assignments, as 11b's unpinned
+        if max(errs.values()) > DP_TOL or max(grads.values()) > DP_TOL:
+            failed.append(f"rank {r}'s first step against the plain run's ({DP_TOL}): "
+                          f"{first[-1]}")
+        try:
+            evals.append(_same_detections(f"eval rank {r}", _images([rec["evals"]]),
+                                          _images([plain["evals"]]), size, tol=None))
+        except AssertionError as e:
+            failed.append(str(e))
+            continue
+        if max(evals[-1]["score_max_abs_err"], evals[-1]["box_max_err_of_size"]) > CHAIN_EVAL_TOL:
+            failed.append(f"eval rank {r} against the plain run (scores and boxes "
+                          f"{CHAIN_EVAL_TOL}): {evals[-1]}")
+    replicas_differ = [_replicas_differ([rec["replicas"][i] for rec in meshed])
+                       for i in range(steps)]
+    if any(replicas_differ):
+        failed.append(f"the ranks' replicated weights differ after steps: {replicas_differ}")
     cfg = pc.get_model_config(DP_PRESETS[0])
-    before, merge_err, chain_err = before_all, 0.0, 0.0
+    before, merge_err, chain_err, frozen_moved = before_all, 0.0, 0.0, []
     for name in LIFECYCLE_TASKS:
         final = torch.load(root / "mesh" / name / "state_final.pt", map_location="cpu",
                            weights_only=True)["params"]
@@ -4358,20 +4389,29 @@ def phase_tensor_sequence_parallel(build_model, optim, step, tokenizer_mod, tran
         if sorted(one) != sorted(final) or any(one[k].shape != v.shape
                                                for k, v in final.items()):
             raise AssertionError(f"13c task {name}: the chained state's keys or shapes")
+        frozen_moved += [f"{name}/{k}" for k, v in one.items()
+                         if "adapter" not in k and not torch.equal(final[k], v)]
         chain_err = max(chain_err, max(float((final[k] - v).abs().max())
-                                       for k, v in one.items()))
+                                       for k, v in one.items() if "adapter" in k))
         before = final
+    if frozen_moved or chain_err > CHAIN_TOL:
+        failed.append(f"chained state against the plain run: untrained tensors that differ "
+                      f"{frozen_moved[:4]}, trained ones {chain_err} (limit {CHAIN_TOL})")
     result["13c"] = {
         "mesh": list(TP_SP_ODINW_MESH), "report": meshed[0]["report"],
         "plain_report": json.loads((root / "plain" / "result.json").read_text()),
-        "eval": evals[0], "merge_f32_max_rel_err": merge_err,
-        "chained_state_max_abs_diff_vs_plain": chain_err,
+        "first_step_vs_plain": first, "eval_vs_plain": evals,
+        "replicated_weights_bitwise_alike": not any(replicas_differ),
+        "merge_f32_max_rel_err": merge_err,
+        "chained_state_max_abs_diff_vs_plain": chain_err, "chain_tol": CHAIN_TOL,
         "step_ms_per_rank": [rec["ms"] for rec in meshed], "step_ms_plain": plain["ms"],
         "peak_gib_per_rank": [rec["peak"] / 2**30 for rec in meshed],
         "peak_gib_plain": plain_peak,
         "launches_per_step": meshed[0]["launches"][0], "run_s_per_rank":
             [rec["run_s"] for rec in meshed], "plain_run_s": plain_s, "launch_s": launch_s}
     log("13c: " + json.dumps(result["13c"]))
+    if failed:
+        raise AssertionError("13c against the plain run: " + "; ".join(failed))
     result["phase_s"] = time.time() - t0
     shutil.rmtree(root, ignore_errors=True)
     return result
@@ -4492,10 +4532,9 @@ def main() -> int:
                         help="build the kernels and run phase 3c alone (no result line)")
     parser.add_argument("--phase13", action="store_true",
                         help="build the kernels and run phase 13 alone (no result line)")
-    parser.add_argument("--phase13-worker", choices=["probe", "ab", "c"], default=None,
+    parser.add_argument("--phase13-worker", choices=["ab", "c"], default=None,
                         help=argparse.SUPPRESS)  # a rank of phase 13, started by run_ranks13
     parser.add_argument("--phase13-root", type=pathlib.Path, default=None, help=argparse.SUPPRESS)
-    parser.add_argument("--phase13-start", type=int, default=0, help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4504,7 +4543,7 @@ def main() -> int:
         phase11_worker(args.phase11_worker, args.phase11_root)
         return 0
     if args.phase13_worker:
-        phase13_worker(args.phase13_worker, args.phase13_root, args.phase13_start)
+        phase13_worker(args.phase13_worker, args.phase13_root)
         return 0
     from ziragroundingdino_torch import config as pc
     from ziragroundingdino_torch.data import transforms

@@ -7,14 +7,19 @@ whose rank jobs import no JAX), f32, at the tiny config:
     forward and step (the matcher pinned to JAX's assignments): detections
     at JAX_TOL with the same top-k queries, every loss and trainable
     gradient at JAX_TOL of its scale; and against the port's one process
-    at PORT_TOL. The images give 85 encoder tokens, not a multiple of the
-    seq size; a 128-token case, the CAT preset (the adapters' self-KD mean
-    over sharded tokens) and a step with every dropout on (the same
-    generator in both runs) are held to the port's one process;
+    at PORT_TOL. The 64x96 images give 128 encoder tokens; a 213-token
+    case (64x160, not a multiple of the seq size), the CAT preset (the
+    adapters' self-KD mean over sharded tokens) and a step with every
+    dropout on (the same generator in both runs) are held to the port's one
+    process; so is a 193-token case (96x96), where the scalar `scaling`
+    gradients' terms cancel, each such gradient held at PORT_TOL of the sum
+    of its terms' magnitudes (`_scaling_terms`);
   * the sharded weights: `tp_targets` against the kernels that JAX's
     `param_sharding` shards on a `make_mesh(data=4, model=2)` of the 8 CPU
-    devices; each rank holding half of each, and `full_state_dict` giving
-    the loaded weights back bitwise;
+    devices; each rank holding half of each, and the sharded model's
+    `state_dict()` giving the loaded weights back bitwise;
+  * the model ranks' copies of the replicated trainable weights bitwise
+    equal after AdamW steps whose gradients were moved apart on each rank;
   * `train_odinw --mesh 1,2` and `--mesh 1,1,2` against `--mesh 1`.
 """
 
@@ -36,22 +41,25 @@ from ziragroundingdino_torch.models import build_model
 from ziragroundingdino_torch.parallel import dist as pdist
 from ziragroundingdino_torch.parallel import mesh as pmesh
 from ziragroundingdino_torch.train import criterion as pcrit
+from ziragroundingdino_torch.train import optim as poptim
+from ziragroundingdino_torch.train import step as pstep
 from ziragroundingdino_torch.weights import _INVERSE, jax_params_to_state_dict
 
 JAX_TOL = 1e-4  # detections (abs), losses and gradients (of their scale) against JAX
 PORT_TOL = 1e-5  # the same, of each tensor's scale, against the port's one process
 MESHES = {"tp": (1, 2, 1), "sp": (1, 1, 2), "tp_sp": (1, 2, 2)}
-# encoder tokens of `make_batch`'s 64x96 images (8x12 + 4x6 + 2x3 + 1x2) and of
-# 64x160 ones (8x20 + 4x10 + 2x5 + 1x3), not a multiple of the seq size
-TOKENS = {"zira": 128, "uneven": 213}
+# encoder tokens of `make_batch`'s 64x96 images (8x12 + 4x6 + 2x3 + 1x2), of
+# 64x160 ones (8x20 + 4x10 + 2x5 + 1x3) and of 96x96 ones (12x12 + 6x6 + 3x3 +
+# 2x2), the last two not a multiple of the seq size
+TOKENS = {"zira": 128, "uneven": 213, "wide": 193}
 DROPOUT = dict(dropout=0.1, text_dropout=0.1, fusion_dropout=0.1, fusion_droppath=0.1)
 DROPOUT_SEED = 3
 
 
-def _batch(w=96):
-    """`make_batch`'s captions and targets on two 64 x w images."""
+def _batch(w=96, h=64):
+    """`make_batch`'s captions and targets on two h x w images."""
     batch = {k: np.asarray(v) for k, v in make_batch().items()}
-    batch["pixels"], batch["mask"] = tiny_image_batch(b=2, h=64, w=w)
+    batch["pixels"], batch["mask"] = tiny_image_batch(b=2, h=h, w=w)
     return batch
 
 
@@ -79,6 +87,47 @@ def _one_process(pcfg, sd, batch, assignments=None, seed=None):
         return sharded_run(model, pcfg, batch, assignments, seed), assignments
     res, seen = _recorded(lambda: sharded_run(model, pcfg, batch, None, seed))
     return res, seen
+
+
+def _scaling_terms(pcfg, sd, batch, assignments):
+    """Each trainable scalar `scaling` gradient split into its terms: the
+    port's one process with every such scalar widened to the shape of the
+    branch it multiplies (`scaling * branch`), so that its gradient holds
+    the term dL/d(scaled branch)_i * branch_i of each element i. Returns
+    {name: (the terms' sum, the sum of their magnitudes)}, in f64."""
+    model = build_model(pcfg, device="cpu", dtype="float32")
+    model.load_state_dict(sd)
+    poptim.set_trainable(model, poptim.trainable_patterns_for_cfg(pcfg),
+                         freeze_all=pcfg.freeze_all)
+    mods = {n: m for n, m in model.named_modules()
+            if isinstance(getattr(m, "scaling", None), torch.nn.Parameter)
+            and m.scaling.numel() == 1 and m.scaling.requires_grad}
+    t = {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
+    rows = torch.from_numpy(np.concatenate(assignments)).long()
+    shapes = {}
+
+    def recording(name, fn):
+        def forward_train(*a, **k):
+            out = fn(*a, **k)
+            assert shapes.setdefault(name, out[0].shape) == out[0].shape, name
+            return out
+        return forward_train
+
+    orig = pcrit.match_batch
+    pcrit.match_batch = lambda *a, **k: rows
+    try:
+        for n, m in mods.items():
+            m.forward_train = recording(n, m.forward_train)
+        with torch.no_grad():
+            pstep.compute_losses(model, t)
+        for n, m in mods.items():
+            m.scaling = torch.nn.Parameter(m.scaling.detach().expand(shapes[n]).clone())
+        total, _ = pstep.compute_losses(model, t)
+        total.backward()
+    finally:
+        pcrit.match_batch = orig
+    return {f"{n}.scaling": (float(m.scaling.grad.double().sum()),
+                             float(m.scaling.grad.double().abs().sum())) for n, m in mods.items()}
 
 
 def _jax_forward_and_step(tp, batch):
@@ -160,23 +209,28 @@ def runs(tmp_path_factory):
                                               num_topk_experts=2))
     cat_cfg, cat_sd = port_config(cat.cfg), cat.port.state_dict()
     drop_cfg = dataclasses.replace(pcfg, **DROPOUT)
+    wide = _batch(96, h=96)
     one = {"zira": _one_process(pcfg, sd, batch, jax_ref["zira"][3]),
            "uneven": _one_process(pcfg, sd, _batch(160), jax_ref["uneven"][3]),
+           "wide": _one_process(pcfg, sd, wide),
            "dropout": _one_process(drop_cfg, sd, batch, seed=DROPOUT_SEED),
            "cat": _one_process(cat_cfg, cat_sd, batch)}
     cases = {
         "zira": ("zira", pcfg, sd, batch, one["zira"][1], None),
         "uneven": ("uneven", pcfg, sd, _batch(160), one["uneven"][1], None),
+        "wide": ("wide", pcfg, sd, wide, one["wide"][1], None),
         "dropout": ("dropout", drop_cfg, sd, batch, one["dropout"][1], DROPOUT_SEED),
         "cat": ("cat", cat_cfg, cat_sd, batch, one["cat"][1], None),
     }
+    terms = _scaling_terms(pcfg, sd, wide, one["wide"][1])
     root = tmp_path_factory.mktemp("odinw")
     args = _odinw_inputs(root)
     ranks = {
-        "tp": run_ranks(job_tp_sp, MESHES["tp"], [cases["zira"], cases["dropout"]],
-                        args("mesh1_2")),
+        "tp": run_ranks(job_tp_sp, MESHES["tp"],
+                        [cases["zira"], cases["dropout"], cases["wide"]], args("mesh1_2")),
         "sp": run_ranks(job_tp_sp, MESHES["sp"], [cases[k] for k in cases], args("mesh1_1_2")),
-        "tp_sp": run_ranks(job_tp_sp, MESHES["tp_sp"], [cases["zira"]], world=4),
+        "tp_sp": run_ranks(job_tp_sp, MESHES["tp_sp"], [cases["zira"], cases["wide"]],
+                           world=4),
     }
     mp = pytest.MonkeyPatch()
     try:
@@ -192,7 +246,7 @@ def runs(tmp_path_factory):
         mp.undo()
     assert not pdist.is_initialized()
     return dict(jax=jax_ref, one={k: v[0] for k, v in one.items()}, ranks=ranks, root=root,
-                report1=report1)
+                report1=report1, terms=terms)
 
 
 def _scale(t):
@@ -207,10 +261,17 @@ def _err(got, want, of_scale=True):
     return np.abs(got - want).max(initial=0.0) / (_scale(want) if of_scale else 1.0)
 
 
-def _check_step(losses, grads, want_losses, want_grads, tol, what):
+def _check_step(losses, grads, want_losses, want_grads, tol, what, terms=None):
     """Every loss at `tol` relative, every trainable gradient at `tol` of
     its scale; a gradient the loss did not reach (CAT's `w_noise` without
-    noisy gating) is None where the reference's is missing or 0."""
+    noisy gating) is None where the reference's is missing or 0. Where
+    `terms` ({name: (sum, sum of magnitudes)}, `_scaling_terms`) has a
+    scalar gradient, it is held at `tol` of the sum of its terms'
+    magnitudes: each term agrees at `tol` as the tensors it is made of do,
+    and a sum in another order (other chunks, other partial sums) then
+    agrees at `tol` times that sum (its f32 rounding, sqrt(N) * 6e-8 of it,
+    lies below), while its own scale may be far smaller where the terms
+    cancel."""
     for k, v in want_losses.items():
         assert abs(losses[k] - v) <= tol * max(abs(v), 1e-30), (what, k, losses[k], v)
     for n, g in grads.items():
@@ -218,6 +279,10 @@ def _check_step(losses, grads, want_losses, want_grads, tol, what):
         want = want.numpy() if isinstance(want, torch.Tensor) else want
         if g is None:
             assert want is None or not np.any(want), (what, n)
+            continue
+        if terms is not None and n in terms:
+            err = _err(g, want, of_scale=False)
+            assert err <= tol * terms[n][1], (what, n, err, terms[n])
             continue
         assert _err(g, want) <= tol, (what, n, _err(g, want))
 
@@ -245,18 +310,21 @@ def test_forward_and_step_match_jax(runs, mesh, case):
 
 
 @pytest.mark.parametrize("mesh,case", [("tp", "zira"), ("sp", "zira"), ("tp_sp", "zira"),
-                                       ("sp", "uneven")])
+                                       ("sp", "uneven"), ("tp", "wide"), ("sp", "wide"),
+                                       ("tp_sp", "wide")])
 def test_sharded_run_matches_one_process(runs, mesh, case):
     """Every rank against the port's one process at PORT_TOL: detections,
-    losses, gradients, all ranks alike; each tensor-parallel rank holds
-    half of each sharded weight (JAX's `_TP_RULES` set,
-    `test_tp_targets_match_jax`), and `full_state_dict` gives the loaded
-    weights back bitwise."""
+    losses, gradients (at 96x96 the scalar `scaling` ones of the sum of
+    their terms' magnitudes, `_check_step`), all ranks alike; each
+    tensor-parallel rank holds half of each sharded weight (JAX's
+    `_TP_RULES` set, `test_tp_targets_match_jax`), and the sharded model's
+    `state_dict()` gives the loaded weights back bitwise."""
     want = runs["one"][case]
     results = _rank_results(runs, mesh, case)
+    terms = runs["terms"] if case == "wide" else None
     for rank, (logits, boxes, topk, losses, grads, counts, same, _) in enumerate(results):
         assert _err(logits, want[0]) <= PORT_TOL and _err(boxes, want[1]) <= PORT_TOL, rank
-        _check_step(losses, grads, want[3], want[4], PORT_TOL, f"{mesh} rank {rank}")
+        _check_step(losses, grads, want[3], want[4], PORT_TOL, f"{mesh} rank {rank}", terms)
         assert losses == results[0][3]
         assert same, rank
         if MESHES[mesh][1] == 1:
@@ -265,10 +333,11 @@ def test_sharded_run_matches_one_process(runs, mesh, case):
             assert counts and all(local * 2 == whole for local, whole in counts.values())
 
 
-@pytest.mark.parametrize("mesh,case", [("sp", "zira"), ("sp", "uneven"), ("tp_sp", "zira")])
+@pytest.mark.parametrize("mesh,case", [("sp", "zira"), ("sp", "uneven"), ("tp_sp", "zira"),
+                                       ("tp_sp", "wide")])
 def test_sp_token_chunks(runs, mesh, case):
     """Under a seq axis of 2 each rank's encoder MSDA runs its chunk of the
-    queries (64 of 128, 107 of 213) against the whole value table, and the
+    queries (64 of 128, 107 of 213, 97 of 193) against the whole value table, and the
     decoder's 6 of its 12 queries against the whole memory; without one,
     every call runs them all."""
     n = TOKENS[case]
@@ -278,6 +347,31 @@ def test_sp_token_chunks(runs, mesh, case):
         assert calls[:4] == [(n, -(-n // 2))] * 2 + [(n, 6)] * 2, calls
     for cases, _ in runs["ranks"]["tp"]:
         assert cases["zira"][7][:4] == [(128, 128)] * 2 + [(128, 12)] * 2
+
+
+def test_scaling_terms_add_up_and_cancel(runs):
+    """`_scaling_terms` splits each scalar `scaling` gradient of the 96x96
+    case into terms that add up to the one process's gradient (at PORT_TOL
+    of their magnitudes), and some of them cancel: their magnitudes' sum
+    exceeds the gradient's own scale, which is why `_check_step` holds
+    these gradients to it."""
+    terms, grads = runs["terms"], runs["one"]["wide"][4]
+    assert len(terms) == 5  # four input-projection levels and the language branch
+    for n, (total, magnitude) in terms.items():
+        g = float(grads[n].double().sum())
+        assert abs(total - g) <= PORT_TOL * magnitude, (n, total, g, magnitude)
+    assert max(m / max(abs(t), 1e-30) for t, m in terms.values()) > 2.0
+
+
+@pytest.mark.parametrize("mesh", ["tp", "tp_sp"])
+def test_model_ranks_keep_one_copy_of_replicated_weights(runs, mesh):
+    """Two AdamW steps with each model rank's gradients moved apart before
+    the optimizer (as the card's unordered atomics move them): the model
+    ranks' replicated gradients differed, and the optimizer's mean over the
+    model axis leaves their replicated trainable weights bitwise equal."""
+    for cases, _ in runs["ranks"][mesh]:
+        differed, same = cases["replicas"]
+        assert differed and same
 
 
 def test_cat_under_sp(runs):

@@ -209,13 +209,69 @@ class MsdaShapes:
             m.ms_deform_attn = self.orig
 
 
+class SkewedOptimizer(poptim.Optimizer):
+    """The optimizer with every model rank's gradients moved apart before
+    its step (model rank m adds m * 1e-3 to each), as the card's unordered
+    float atomics move them; `differed` records whether a replicated
+    gradient then differed over the model axis."""
+
+    differed = False
+
+    def step(self):
+        from ziragroundingdino_torch.parallel import tp
+
+        group, size, m = pdist.axis("model")
+        for p in self.params.values():
+            if p.grad is not None:
+                p.grad.add_(m * 1e-3)
+        rep = [p.grad.reshape(-1) for p in self.params.values()
+               if p.grad is not None and not tp.is_sharded(p)]
+        flat = torch.cat(rep)
+        gathered = pdist.gather_cat(flat[None], 0, group, size)
+        self.differed |= not all(torch.equal(g, flat) for g in gathered)
+        return super().step()
+
+
+def replica_run(model, pcfg, batch, assignments, mesh, steps: int = 2):
+    """`steps` train steps of `model` under `mesh` with `SkewedOptimizer`
+    (AdamW at lr 1e-2, the matcher pinned): (whether the model ranks'
+    replicated gradients differed before a step, whether their replicated
+    trainable parameters are bitwise equal after the steps)."""
+    import contextlib
+
+    from ziragroundingdino_torch.config import OptimizerConfig, ScheduleConfig
+    from ziragroundingdino_torch.parallel import sp, tp
+
+    poptim.set_trainable(model, poptim.trainable_patterns_for_cfg(pcfg),
+                         freeze_all=pcfg.freeze_all)
+    tp.shard_model_(model, mesh)
+    opt = SkewedOptimizer(model, OptimizerConfig(lr=1e-2), ScheduleConfig())
+    net = pstep.wrap_ddp(model) if pstep.ddp_applies() else model
+    t = {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
+    rows = torch.from_numpy(np.concatenate(assignments)).long()
+    orig, pcrit.match_batch = pcrit.match_batch, lambda *a, **k: rows
+    ctx = sp.sequence_parallel(mesh) if mesh.seq > 1 else contextlib.nullcontext()
+    try:
+        with ctx:
+            for _ in range(steps):
+                pstep.train_step(net, opt, t)
+    finally:
+        pcrit.match_batch = orig
+    group, size, _ = pdist.axis("model")
+    flat = torch.cat([p.detach().reshape(-1) for p in opt.params.values()
+                      if not tp.is_sharded(p)])
+    gathered = pdist.gather_cat(flat[None], 0, group, size)
+    return opt.differed, all(torch.equal(g, flat) for g in gathered)
+
+
 def job_tp_sp(rank, sizes, cases, odinw_args=None):
     """Each case's `sharded_run` on a `make_mesh(*sizes)` of the ranks, then
     `train_odinw --mesh` of the same sizes where `odinw_args` are given:
     ({label: (pred_logits, pred_boxes, topk_idx, losses, gradients,
-    {sharded weight: (local elements, whole elements)}, whether
-    `full_state_dict` gave the loaded weights back bitwise, each MSDA call's
-    (value tokens, queries))}, the driver's report)."""
+    {sharded weight: (local elements, whole elements)}, whether the
+    sharded model's `state_dict()` gave the loaded weights back bitwise,
+    each MSDA call's (value tokens, queries))} and, under a model axis,
+    {"replicas": the first case's `replica_run`}, the driver's report)."""
     from ziragroundingdino_torch.parallel import mesh as pmesh
     from ziragroundingdino_torch.parallel import tp
 
@@ -229,9 +285,14 @@ def job_tp_sp(rank, sizes, cases, odinw_args=None):
         counts = {n: (p.numel(), int(np.prod(p.tp.full_shape)))
                   for n, p in model.named_parameters() if tp.is_sharded(p)}
         model.load_state_dict(sd)
-        whole = tp.full_state_dict(model)
+        whole = model.state_dict()
         same = sorted(whole) == sorted(sd) and all(torch.equal(whole[k], v) for k, v in sd.items())
         out[label] = res + (counts, same, shapes.calls)
+    if mesh.model > 1:
+        _, pcfg, sd, batch, assignments, _ = cases[0]
+        model = build_model(pcfg, device="cpu", dtype="float32")
+        model.load_state_dict(sd)
+        out["replicas"] = replica_run(model, pcfg, batch, assignments, mesh)
     report = None
     if odinw_args is not None:
         from ziragroundingdino_torch.scripts import train_odinw

@@ -35,15 +35,15 @@ Autograd pairs, each with its true adjoint where the name says so:
 forward, reduce-scatter backward) treat the ranks' losses as one sum; the
 Megatron pairs of `parallel/tp.py` (`copy_to`, `reduce_from`, `gather_from`,
 `scatter_to`) treat every rank's loss as the same loss. All of them are
-written with `all_reduce`, `all_gather` and `broadcast` only: a
-reduce-scatter is an all-reduce and a slice. Gloo is the backend of ranks
-that share one card (NCCL refuses two ranks on one device). On an H100
-with PyTorch 2.11 (CUDA 12.8), gloo took every collective that
-`chip_smoke.py` phase 13 probes on CUDA tensors in f32 and bf16: all_reduce
-(sum and max), all_gather, broadcast, all_gather_into_tensor,
-reduce_scatter, reduce_scatter_tensor and all_to_all_single; a `send` /
-`recv` pair aborted the process (gloo: "writev: Bad address"), so a
-pipeline stage's transfer cannot be a send on card tensors there.
+written with `all_reduce`, `all_gather`, `reduce_scatter` and `broadcast`.
+Gloo is the backend of ranks that share one card (NCCL refuses two ranks on
+one device). On an H100 with PyTorch 2.11 (CUDA 12.8), gloo took on CUDA
+tensors, in f32 and bf16, all_reduce (sum and max), all_gather, broadcast,
+all_gather_into_tensor, reduce_scatter, reduce_scatter_tensor and
+all_to_all_single; a `send` / `recv` pair aborted the process (gloo:
+"writev: Bad address"), so a pipeline stage's transfer cannot be a send on
+card tensors there. `chip_smoke.py` phase 13 probes the collectives the
+port uses (`PORT_COLLECTIVES` there) before it runs the mesh.
 """
 
 from __future__ import annotations
@@ -206,20 +206,28 @@ class _AllReduceSum(torch.autograd.Function):
         return reduced(grad, ctx.group), None
 
 
+def reduce_scatter_cat(x: torch.Tensor, dim: int, group, size: int) -> torch.Tensor:
+    """This rank's slice along `dim` of the sum of the axis's ranks' `x`, the
+    slices equal and in rank order (`gather_cat`'s adjoint; no autograd)."""
+    parts = [c.contiguous() for c in x.chunk(size, dim)]
+    out = torch.empty_like(parts[0])
+    dist.reduce_scatter(out, parts, group=group)
+    return out
+
+
 class _AllGather(torch.autograd.Function):
-    """All-gather along `dim` forward; its true adjoint, a reduce-scatter
-    (an all-reduce of the whole gradient, then this rank's slice),
+    """All-gather along `dim` forward; its true adjoint, a reduce-scatter,
     backward."""
 
     @staticmethod
-    def forward(ctx, x, dim, group, size, rank):
-        ctx.args = dim, group, x.shape[dim], rank
+    def forward(ctx, x, dim, group, size):
+        ctx.args = dim, group, size
         return gather_cat(x, dim, group, size)
 
     @staticmethod
     def backward(ctx, grad):
-        dim, group, n, rank = ctx.args
-        return reduced(grad, group).narrow(dim, rank * n, n), None, None, None, None
+        dim, group, size = ctx.args
+        return reduce_scatter_cat(grad, dim, group, size), None, None, None
 
 
 def all_reduce_sum(x: torch.Tensor, axis_name: str = "data") -> torch.Tensor:
@@ -234,10 +242,10 @@ def all_reduce_sum(x: torch.Tensor, axis_name: str = "data") -> torch.Tensor:
 def all_gather(x: torch.Tensor, dim: int, axis_name: str) -> torch.Tensor:
     """The axis's ranks' `x` concatenated along `dim` in rank order; the
     backward reduce-scatters (`_AllGather`)."""
-    group, size, rank = axis(axis_name)
+    group, size, _ = axis(axis_name)
     if size == 1:
         return x
-    return _AllGather.apply(x, dim, group, size, rank)
+    return _AllGather.apply(x, dim, group, size)
 
 
 def global_divisor(count: torch.Tensor) -> torch.Tensor:

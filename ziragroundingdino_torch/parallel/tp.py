@@ -34,18 +34,24 @@ forward, all-reduce backward); out of a row-parallel layer by `reduce_from`
 bias that a layer uses a slice of by `scatter_to` (the slice forward,
 all-gather backward). Replicated parameters then get the full gradient on
 every model rank, with no reduction over the model group, and each shard
-the gradient of its slice. The optimizer counts each shard once in the
-global norm (`train.optim.clip_by_global_norm_`).
+the gradient of its slice. The model ranks' gradients of a replicated
+parameter are equal in exact arithmetic but not bitwise (the MSDA
+backward's float atomics add in no fixed order), and each rank would
+apply its own AdamW update to its copy: `mean_replicated_grads_` averages
+them over the model axis before every optimizer step, so the copies stay
+one. The optimizer counts each shard once in the global norm
+(`train.optim.clip_by_global_norm_`).
 
 A sharded layer's `state_dict` holds the whole weight (gathered over the
-model axis, so every model rank saves at once) and `load_state_dict` takes
-the whole weight and keeps the rank's slice: checkpoints, `state_final.pt`,
-`rep_merge` and `load_model` see whole tensors (`full_state_dict`).
+model axis, so every model rank calls `model.state_dict()` at once) and
+`load_state_dict` takes the whole weight and keeps the rank's slice:
+checkpoints, `state_final.pt`, `rep_merge` and `load_model` see whole
+tensors in the reference's keys and shapes.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Iterable
 
 import torch
 import torch.nn.functional as F
@@ -264,11 +270,22 @@ def shard_model_(model: nn.Module, mesh) -> Dict[str, int]:
     return targets
 
 
-def full_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
-    """The model's state dict with every sharded weight whole, in the
-    reference's keys and shapes (every model rank calls it at once)."""
-    return model.state_dict()
-
-
 def is_sharded(p: torch.Tensor) -> bool:
     return getattr(p, "tp", None) is not None
+
+
+@torch.no_grad()
+def mean_replicated_grads_(params: Iterable[torch.Tensor]) -> None:
+    """The gradients of the replicated parameters among `params` (those that
+    are not a shard) set to their mean over the model axis, in place, in
+    one all-reduce per dtype; see the module doc. Nothing without a model
+    axis."""
+    group, size, _ = dist.axis("model")
+    if size == 1:
+        return
+    grads = [p.grad for p in params if p.grad is not None and not is_sharded(p)]
+    for dtype in sorted({g.dtype for g in grads}, key=str):
+        same = [g for g in grads if g.dtype == dtype]
+        flat = dist.reduced(torch.cat([g.reshape(-1) for g in same]), group) / size
+        for g, v in zip(same, flat.split([g.numel() for g in same])):
+            g.copy_(v.view_as(g))

@@ -231,6 +231,8 @@ class Optimizer:
                 # without noisy gating) steps on a zero gradient, so that AdamW
                 # decays it and its moments as optax's does
                 p.grad = torch.zeros_like(p)
+        # the model ranks' copies of a replicated parameter take one update
+        tp.mean_replicated_grads_(self.params.values())
         grads = [p.grad for p in self.params.values()]
         sharded = [tp.is_sharded(p) for p in self.params.values()]
         self.mini_step += 1

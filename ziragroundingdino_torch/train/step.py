@@ -99,7 +99,8 @@ def ddp_applies() -> bool:
     """Whether a step goes through DDP: under a process group, unless the
     mesh's gradient axis (data x seq) has one rank of several processes
     (tensor parallelism alone: each model rank's gradients are already the
-    step's)."""
+    step's, and the optimizer averages the replicated ones over the model
+    axis, `parallel.tp.mean_replicated_grads_`)."""
     size = dist.axis("grad")[1]
     return dist.is_initialized() and (size > 1 or dist.process_count() == 1)
 
@@ -112,7 +113,9 @@ def wrap_ddp(model: GroundingDINO, matcher_impl: str = "lsap") -> DistributedDat
     gradients add up to the seq size times the step's (`parallel/sp.py`):
     DDP's mean over data x seq is then the gradient of the global batch's
     loss. Under tensor parallelism each model rank has its own DDP group,
-    of the ranks that hold its shards. Call after `optim.set_trainable`,
+    of the ranks that hold its shards, and the optimizer then averages the
+    replicated parameters' gradients over the model axis
+    (`parallel.tp.mean_replicated_grads_`). Call after `optim.set_trainable`,
     since DDP hooks only the parameters that require a gradient when it is
     built, and build it anew for each task. It averages the trainable
     gradients over the ranks as the backward makes them, bucket by bucket.
