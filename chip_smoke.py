@@ -1,6 +1,6 @@
 """Drive the PyTorch port on one NVIDIA card and check it.
 
-    python3 chip_smoke.py [--profile DIR] [--phase3c | --phase12 | --phase13]
+    python3 chip_smoke.py [--profile DIR] [--phase3c | --phase12 | --phase13 | --phase14]
 
 Phases, in order (any failure raises, and the script exits non-zero):
   1. card: name, nvidia-smi name and power limit; TF32 off for f32 checks;
@@ -242,9 +242,28 @@ Phases, in order (any failure raises, and the script exits non-zero):
        18, 12 and 1 launches a step on every rank;
      each rank's peak memory and step ms beside one process's; a
      `phase 13: {...}` line.
-  Phases 5b, 6, 7c, 8, 10, 11 and 12 check one `lsap` launch and no host
-  matcher call (no copy of the costs to the host) per train step.
-  14. result: a `kernels` JSON line, the nvidia-smi line, and last
+  14. pipeline parallelism over the encoder's layers (`parallel/pp.py`,
+     `pipeline_parallel(make_mesh(..., pipe=2), microbatches=2)`) at full
+     width, f32, remat on, under `build/phase14` (removed after), the ranks
+     processes of `torch.distributed.run` sharing the card over gloo (this
+     script with --phase14-worker); no scaling is claimed:
+     14a. the ZiRa preset under `make_mesh(1, pipe=2)`, two ranks of 3
+       encoder layers each; 14b. CAT (stage-owned in-layer adapters, its
+       adapter loss across the stages) under `make_mesh(1, model=2,
+       pipe=2)`, four ranks; each a request and two AdamW steps at batch 2
+       against this process at batch 2, the query choice and assignments
+       replayed: the first step's losses within DP_PINNED_TOL[0], every
+       trainable gradient as the update takes it within DP_PINNED_TOL[1]
+       of its scale, the request within REQUEST_TOL, every rank's weights
+       and `state_dict()` bitwise alike after the steps; on each rank 18,
+       12 (6 binned) and 1 launches a step and 12 `msda_forward` a
+       request, its own stage's layers alone, 4 transfers a neighbouring
+       stage and 2 broadcasts over the pipe line a step; each rank's step
+       ms and peak memory beside one process's; a `phase 14: {...}` line.
+  Phases 5b, 6, 7c, 8, 10, 11, 12, 13 and 14 check one `lsap` launch a
+  train step, and 5b to 12 no host matcher call (no copy of the costs to
+  the host).
+  15. result: a `kernels` JSON line, the nvidia-smi line, and last
      `{"ok": true, "device": {...}}`.
 
 It needs a CUDA card and the repository's `ziragroundingdino_torch` package
@@ -4045,28 +4064,38 @@ class _MsdaRecorder:
             m.ms_deform_attn = self.orig
 
 
-def _tp_sp_run(build_model, optim, step, batch, mesh=None, pinned=None) -> dict:
-    """The ZiRa preset at full width (DP_DTYPE, remat, phase 11's seeded
-    weights) on `batch`: one request (the eval forward) and two train steps
-    (the second timed) under `mesh` (sharded by `parallel.tp.shard_model_`,
-    in `sequence_parallel` where it has a seq axis), or in this process
-    alone without one, recording the queries it chose and the
-    assignments it used; with `pinned` (the one process's record) it
-    replays them. The steps are the driver's optimizer's (AdamW at lr 1e-3,
-    clip 0.1). Returns the request's detections, the first step's losses
-    and trainable gradients (whole; this rank's, before the optimizer's
-    mean over the model axis), the launches of each step, the MSDA calls'
-    shapes and the first query-sharded call, the sharded weights' element
-    counts, whether the sharded model's `state_dict()` is the one process's
-    weights bitwise, the replicated trainable weights' digests after the
-    steps (`_replicas`), step ms and peak memory."""
+def _tp_sp_run(build_model, optim, step, batch, mesh=None, pinned=None,
+               preset: str = DP_PRESETS[0], microbatches=None, reduced_grads=False) -> dict:
+    """`preset` (the ZiRa one unless named) at full width (DP_DTYPE, remat,
+    phase 11's seeded weights, CAT's adapters drawn by
+    `_seeded_pet_modules`) on `batch`: one request (the eval forward) and
+    two train steps (the second timed) under `mesh` (sharded by
+    `parallel.tp.shard_model_`, in `sequence_parallel` where it has a seq
+    axis, in `pipeline_parallel(mesh, microbatches)` where it has a pipe
+    axis), or in this process alone without one, recording the queries it
+    chose and the assignments it used; with `pinned` (the one process's
+    record) it replays them. The steps are the driver's optimizer's (AdamW
+    at lr 1e-3, clip 0.1). Returns the request's detections, the first
+    step's losses and trainable gradients (whole; this rank's, before the
+    optimizer's mean over the model axis, or, with `reduced_grads`, as the
+    update takes them: zero-filled, one copy over the model and pipe axes,
+    before the clip), the launches of each step (and the binned
+    `msda_backward` ones), the MSDA calls' shapes and the first
+    query-sharded call, the sharded weights' element counts, whether the
+    sharded model's `state_dict()` is the one process's weights bitwise,
+    the replicated trainable weights' digests after the steps (`_replicas`),
+    the encoder layers each forward ran, the pipeline's transfers a step,
+    step ms and peak memory; under a pipe axis also a digest of
+    `state_dict()` after the steps."""
     from ziragroundingdino_torch.models import transformer
     from ziragroundingdino_torch.ops.lsap import lsap_cuda
     from ziragroundingdino_torch.ops.msda_cuda import msda_backward, msda_forward
-    from ziragroundingdino_torch.parallel import dist, sp, tp
+    from ziragroundingdino_torch.parallel import dist, pp, sp, tp
     from ziragroundingdino_torch.train import criterion
 
-    model = _dp_model(build_model, optim, DP_PRESETS[0], DP_CARD, **REMAT)
+    model = _dp_model(build_model, optim, preset, DP_CARD, **REMAT)
+    if model.cfg.use_adapter:
+        _seeded_pet_modules(model)
     whole = {k: v.detach().clone() for k, v in model.state_dict().items()}
     torch.cuda.reset_peak_memory_stats()
     targets = tp.shard_model_(model, mesh) if mesh is not None else {}
@@ -4076,12 +4105,17 @@ def _tp_sp_run(build_model, optim, step, batch, mesh=None, pinned=None) -> dict:
     full_bitwise = sorted(full) == sorted(whole) and all(torch.equal(v, whole[k])
                                                          for k, v in full.items())
     del full
-    ctx = (sp.sequence_parallel(mesh) if mesh is not None and mesh.seq > 1
+    piped = mesh is not None and mesh.pipe > 1
+    ctx = (pp.pipeline_parallel(mesh, microbatches) if piped
+           else sp.sequence_parallel(mesh) if mesh is not None and mesh.seq > 1
            else contextlib.nullcontext())
     counters = (msda_forward, msda_backward, lsap_cuda)
     text = {k: batch[k] for k in step.TEXT_KEYS}
     opt = optim.Optimizer(model, optim.OptimizerConfig(lr=1e-3, grad_clip=0.1))
     first = {}
+    layer_calls = []
+    hooks = [layer.register_forward_hook(lambda m, a, o, i=i: layer_calls.append(i))
+             for i, layer in enumerate(model.transformer.encoder.layers)]
 
     def capture():
         first.update((n, p.grad.detach().float().cpu()) for n, p in opt.params.items()
@@ -4089,7 +4123,18 @@ def _tp_sp_run(build_model, optim, step, batch, mesh=None, pinned=None) -> dict:
         del opt.step
         return opt.step()
 
-    opt.step = capture
+    reduce_pipe = pp.reduce_pipe_grads_
+
+    def reduced_then_captured(named):
+        named = list(named)
+        reduce_pipe(named)
+        if not first:
+            first.update((n, p.grad.detach().float().cpu()) for n, p in named)
+
+    if reduced_grads:
+        pp.reduce_pipe_grads_ = reduced_then_captured
+    else:
+        opt.step = capture
     net = step.wrap_ddp(model) if mesh is not None and step.ddp_applies() else model
     chosen, used = [], []
     select_topk, match_batch = transformer.select_topk, criterion.match_batch
@@ -4106,7 +4151,7 @@ def _tp_sp_run(build_model, optim, step, batch, mesh=None, pinned=None) -> dict:
         return (used[-1] if pinned is None
                 else pinned["assignments"][len(used) - 1].to(logits.device))
 
-    launches, ms = [], []
+    launches, binned, ms, transfers, step_layers = [], [], [], [], []
     transformer.select_topk, criterion.match_batch = selected, matched
     with ctx, _MsdaRecorder() as rec:
         try:
@@ -4115,20 +4160,29 @@ def _tp_sp_run(build_model, optim, step, batch, mesh=None, pinned=None) -> dict:
                 out = model(batch["pixels"], batch["mask"], text)
             request = {k: out[k].float().cpu() for k in ("pred_logits", "pred_boxes")}
             request_launches = tuple(c.launches - b for c, b in zip(counters, before))
+            request_layers, layer_calls[:] = list(layer_calls), []
             for i in range(2):
                 before = tuple(c.launches for c in counters)
+                before_binned, before_counts = msda_backward.binned_launches, dict(pp.COUNTS)
                 torch.cuda.synchronize()
                 t = time.perf_counter()
                 metrics = step.train_step(net, opt, batch)
                 torch.cuda.synchronize()
                 ms.append((time.perf_counter() - t) * 1e3)
                 launches.append(tuple(c.launches - b for c, b in zip(counters, before)))
+                binned.append(msda_backward.binned_launches - before_binned)
+                transfers.append({k: v - before_counts[k] for k, v in pp.COUNTS.items()})
+                step_layers.append(sorted(set(layer_calls)))
+                layer_calls[:] = []
                 if i == 0:
                     losses = {k: float(v) for k, v in metrics.items() if k != "grad_norm"}
                     grads = {n: (params[n].tp.full_of(g.to(DP_CARD)).cpu() if n in targets
                                  else g) for n, g in first.items()}
         finally:
             transformer.select_topk, criterion.match_batch = select_topk, match_batch
+            pp.reduce_pipe_grads_ = reduce_pipe
+            for h in hooks:
+                h.remove()
     cfg = model.cfg
     result = {"layers": (cfg.enc_layers, cfg.dec_layers),
               "request": request, "request_launches": request_launches, "losses": losses,
@@ -4140,7 +4194,16 @@ def _tp_sp_run(build_model, optim, step, batch, mesh=None, pinned=None) -> dict:
               "slots_reordered": (0 if pinned is None else sum(
                   int((c.cpu() != p).sum()) for c, p in zip(chosen, pinned["topk_idx"]))),
               "assignments_moved": (0 if pinned is None else sum(
-                  int((u.cpu() != p).sum()) for u, p in zip(used, pinned["assignments"])))}
+                  int((u.cpu() != p).sum()) for u, p in zip(used, pinned["assignments"]))),
+              "binned": binned, "request_layers": request_layers, "step_layers": step_layers,
+              "transfers": transfers}
+    if piped:
+        import hashlib
+
+        digest = hashlib.sha256()
+        for k, v in sorted(model.state_dict().items()):
+            digest.update(k.encode() + v.detach().float().cpu().numpy().tobytes())
+        result["state_digest"] = digest.hexdigest()
     if rec.first is not None:
         from ziragroundingdino_torch.ops.msda import ms_deform_attn_plain
 
@@ -4417,6 +4480,163 @@ def phase_tensor_sequence_parallel(build_model, optim, step, tokenizer_mod, tran
     return result
 
 
+PP_MESHES = (("14a", (1, 1, 2), "dualzerorepbranchgroundingdino"),  # (label, (data,
+              ("14b", (1, 2, 2), "catgroundingdino"))  # model, pipe), preset)
+PP_MICRO = 2  # microbatches: the local batch of 2 in two
+
+
+def run_ranks14(kind: str, n: int, root: pathlib.Path, timeout: int = 600) -> float:
+    """This script's phase 14 worker `kind` in n processes of
+    `torch.distributed.run`, as `run_ranks13`; returns the wall seconds."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(n),
+           "--master_addr", "127.0.0.1", "--master_port", str(_free_port()),
+           str(WORKER), "--phase14-worker", kind, "--phase14-root", str(root)]
+    t = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout)
+    (root / f"worker14_{kind}.log").write_text(res.stdout + res.stderr)
+    if res.returncode:
+        tail = "\n".join((res.stdout + res.stderr).splitlines()[-60:])
+        raise AssertionError(f"phase 14 worker {kind} on {n} ranks exited {res.returncode}:\n"
+                             f"{tail}")
+    return time.perf_counter() - t
+
+
+def phase14_worker(label: str, root: pathlib.Path) -> None:
+    """A rank of phase 14 `label` (a PP_MESHES entry), started by
+    `run_ranks14` over gloo on the shared card: `_tp_sp_run` of its preset
+    under `make_mesh(data, model, 1, pipe)` in `pipeline_parallel` with
+    PP_MICRO microbatches, replaying the one process's queries and
+    assignments. Writes its record to `root/<label>_rank<r>.pt`."""
+    import os
+
+    from ziragroundingdino_torch import config as pc
+    from ziragroundingdino_torch.data import transforms
+    from ziragroundingdino_torch.models import build_model
+    from ziragroundingdino_torch.parallel import dist
+    from ziragroundingdino_torch.parallel import mesh as pmesh
+    from ziragroundingdino_torch.text import tokenizer as tokenizer_mod
+    from ziragroundingdino_torch.train import optim, step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = int(os.environ["RANK"])
+    dist.init_from_env(DP_CARD, "gloo")
+    _, (data, model, pipe), preset = next(m for m in PP_MESHES if m[0] == label)
+    batch = _dp_inputs(pc, tokenizer_mod, transforms, DP_CARD)
+    pinned = torch.load(root / f"pinned_{label}.pt")
+    mesh = pmesh.make_mesh(data, model, 1, pipe)
+    out = _tp_sp_run(build_model, optim, step, batch, mesh, pinned, preset=preset,
+                     microbatches=PP_MICRO, reduced_grads=True)
+    out["coords"] = (mesh.axes["data"][2], mesh.axes["pipe"][2], mesh.axes["model"][2])
+    dist.destroy()
+    torch.save(out, root / f"{label}_rank{rank}.pt")
+
+
+def phase_pipeline_parallel(build_model, optim, step, tokenizer_mod, transforms, pc,
+                            card_line):
+    """14, pipeline parallelism over the encoder's layers at full width under
+    `build/phase14` (removed after), ranks sharing the card over gloo
+    (`torch.distributed.run`, this script with --phase14-worker), f32
+    (DP_DTYPE), remat on, PP_MICRO microbatches:
+    14a `make_mesh(1, pipe=2)`, two ranks, the ZiRa preset (3 encoder layers
+      a stage);
+    14b `make_mesh(1, model=2, pipe=2)`, four ranks, CAT (whose in-layer
+      adapters are stage-owned and whose adapter loss crosses the stages),
+      its adapters drawn by `_seeded_pet_modules`;
+    each a request and two AdamW steps at batch 2 against this process at
+    batch 2, the query choice and assignments replayed: the first step's
+    losses within DP_PINNED_TOL[0], every trainable gradient (as the
+    update takes it) within DP_PINNED_TOL[1] of its scale, the request's
+    logits and boxes within REQUEST_TOL, every rank's trainable weights
+    and `state_dict()` bitwise alike after the steps; each rank runs its
+    own stage's layers alone, and a step joins 2 PP_MICRO transfers a
+    neighbouring stage and 2 broadcasts over the pipe line. Each rank's
+    launches a step and a request, binned launches, step ms and peak
+    memory beside one process's."""
+    root = pathlib.Path(__file__).resolve().parent / "build" / "phase14"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t0 = time.time()
+    result = {"card": card_line}
+    batch = _dp_inputs(pc, tokenizer_mod, transforms, DP_CARD)
+    refs = {}
+    for label, _, preset in PP_MESHES:
+        refs[label] = _tp_sp_run(build_model, optim, step, batch, preset=preset,
+                                 reduced_grads=True)
+        torch.save({k: refs[label][k] for k in ("topk_idx", "assignments")},
+                   root / f"pinned_{label}.pt")
+        torch.cuda.empty_cache()
+    del batch
+    torch.cuda.empty_cache()
+    failed = []
+    for label, (data, model, pipe), preset in PP_MESHES:
+        n = data * model * pipe
+        launch_s = run_ranks14(label, n, root)
+        ranks = [torch.load(root / f"{label}_rank{r}.pt", weights_only=False) for r in range(n)]
+        ref = refs[label]
+        enc, dec_layers = ref["layers"]
+        chunk = enc // pipe
+        # remat: each stage's layers twice, once a microbatch
+        want = (2 * chunk * PP_MICRO + dec_layers, chunk * PP_MICRO + dec_layers, 1)
+        recs = []
+        for r, got in enumerate(ranks):
+            d, p, m = got["coords"]
+            own = list(range(p * chunk, (p + 1) * chunk))
+            neighbours = (p > 0) + (p < pipe - 1)
+            errs = {k: abs(got["losses"][k] - v) / max(abs(v), 1e-30)
+                    for k, v in ref["losses"].items()}
+            grads = _grad_errors(got["grads"], ref["grads"])
+            rec = {"coords": [d, p, m], "loss_max_rel_err": max(errs.values()),
+                   "worst_losses": _worst(errs), "grad_max_rel_err": max(grads.values()),
+                   "worst_grads": _worst(grads),
+                   "request_max_err": _request_err(got["request"], ref["request"]),
+                   "state_dict_bitwise_before": got["full_bitwise"],
+                   "launches_per_step": got["launches"], "binned_per_step": got["binned"],
+                   "request_launches": got["request_launches"],
+                   "request_layers": got["request_layers"], "step_layers": got["step_layers"],
+                   "transfers_per_step": got["transfers"],
+                   "own_slots_reordered": got["slots_reordered"],
+                   "own_assignments_moved": got["assignments_moved"],
+                   "step_ms": got["step_ms"], "peak_gib": got["peak_gib"]}
+            if (rec["loss_max_rel_err"] > DP_PINNED_TOL[0]
+                    or rec["grad_max_rel_err"] > DP_PINNED_TOL[1]
+                    or rec["request_max_err"] > REQUEST_TOL or not got["full_bitwise"]
+                    or got["launches"] != [want] * 2
+                    or got["binned"] != [chunk * PP_MICRO] * 2
+                    or got["request_launches"][:2] != (chunk * PP_MICRO + dec_layers, 0)
+                    or got["request_layers"] != own * PP_MICRO
+                    or got["step_layers"] != [own] * 2
+                    or got["transfers"] != [{"boundary": 2 * PP_MICRO * neighbours,
+                                             "pipe": 2}] * 2):
+                failed.append(f"{label} rank {r} (losses {DP_PINNED_TOL[0]}, gradients "
+                              f"{DP_PINNED_TOL[1]}, request {REQUEST_TOL}, launches {want}): "
+                              f"{rec}")
+            recs.append(rec)
+        if sorted(rec["coords"] for rec in recs) != [[d, p, m] for d in range(data)
+                                                     for p in range(pipe) for m in range(model)]:
+            failed.append(f"{label}: coordinates {[rec['coords'] for rec in recs]}")
+        differ = _replicas_differ([rank["replicas"] for rank in ranks])
+        digests = {rank["state_digest"] for rank in ranks}
+        if differ or len(digests) != 1:
+            failed.append(f"{label}: the ranks' weights differ after the steps: trainable "
+                          f"{differ[:4]} ({len(differ)}), state_dict digests {len(digests)}")
+        result[label] = {"mesh": {"data": data, "model": model, "pipe": pipe}, "preset": preset,
+                         "microbatches": PP_MICRO, "ranks": recs,
+                         "trainable_weights_bitwise_alike": not differ,
+                         "state_dict_bitwise_alike": len(digests) == 1,
+                         "trainable_weights": len(ranks[0]["replicas"]),
+                         "one_process": {"step_ms": ref["step_ms"], "peak_gib": ref["peak_gib"],
+                                         "launches": ref["launches"], "binned": ref["binned"],
+                                         "request_launches": ref["request_launches"]},
+                         "launch_s": launch_s}
+        log(f"{label}: " + json.dumps(result[label]))
+    if failed:
+        raise AssertionError("14 against one process: " + "; ".join(failed))
+    result["phase_s"] = time.time() - t0
+    shutil.rmtree(root, ignore_errors=True)
+    return result
+
+
 def _merged_ms(intervals) -> float:
     """Length of the union of (start, end) intervals in microseconds, in ms."""
     total, end = 0.0, float("-inf")
@@ -4535,6 +4755,11 @@ def main() -> int:
     parser.add_argument("--phase13-worker", choices=["ab", "c"], default=None,
                         help=argparse.SUPPRESS)  # a rank of phase 13, started by run_ranks13
     parser.add_argument("--phase13-root", type=pathlib.Path, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--phase14", action="store_true",
+                        help="build the kernels and run phase 14 alone (no result line)")
+    parser.add_argument("--phase14-worker", choices=[m[0] for m in PP_MESHES], default=None,
+                        help=argparse.SUPPRESS)  # a rank of phase 14, started by run_ranks14
+    parser.add_argument("--phase14-root", type=pathlib.Path, default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4544,6 +4769,9 @@ def main() -> int:
         return 0
     if args.phase13_worker:
         phase13_worker(args.phase13_worker, args.phase13_root)
+        return 0
+    if args.phase14_worker:
+        phase14_worker(args.phase14_worker, args.phase14_root)
         return 0
     from ziragroundingdino_torch import config as pc
     from ziragroundingdino_torch.data import transforms
@@ -4580,6 +4808,10 @@ def main() -> int:
         return 0
     if args.phase13:
         log("phase 13: " + json.dumps(phase_tensor_sequence_parallel(
+            build_model, optim, step, tokenizer_mod, transforms, pc, card_line)))
+        return 0
+    if args.phase14:
+        log("phase 14: " + json.dumps(phase_pipeline_parallel(
             build_model, optim, step, tokenizer_mod, transforms, pc, card_line)))
         return 0
     if args.phase12:
@@ -4675,6 +4907,17 @@ def main() -> int:
                 "13b": tp_sp["13b"]["ranks"][0]["launches_per_step"][0][i],
                 "13c": tp_sp["13c"]["launches_per_step"][i]}
 
+    # 14. pipeline parallelism: ranks sharing the card over gloo
+    torch.cuda.empty_cache()
+    pipe_parallel = phase_pipeline_parallel(build_model, optim, step, tokenizer_mod,
+                                            transforms, pc, card_line)
+
+    def phase_14_launches(i):
+        """Each mesh's launches a step on every rank, the kernel's `i`th
+        count, and (`i` None) the binned `msda_backward` ones."""
+        return {label: [r["binned_per_step"][0] if i is None else r["launches_per_step"][0][i]
+                        for r in pipe_parallel[label]["ranks"]] for label, _, _ in PP_MESHES}
+
     # result
     enc, dec = rec["encoder"], rec["decoder"]
     benc = rec_bwd["encoder", "binned"]  # the path of the main path's encoder calls
@@ -4721,6 +4964,7 @@ def main() -> int:
                                                     phase_12["12a_per_iteration"]],
                               "12b": phase_12["12b"][0], "12c": phase_12["12c"]},
         "phase_13_launches_per_rank_step": phase_13_launches(0),
+        "phase_14_launches_per_rank_step": phase_14_launches(0),
         "decoder": {k: dec[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
                                         "max_abs_err", "l2_gather_mb")},
         "decoder_timed_at": "decoder call, bf16 value, B=1 Q=900 S=20197 H=8 D=32 L=P=4",
@@ -4762,6 +5006,8 @@ def main() -> int:
                                                            phase_12["12a_per_iteration"]],
                               "12b": phase_12["12b"][1], "12b_binned": phase_12["12b"][2]},
         "phase_13_launches_per_rank_step": phase_13_launches(1),
+        "phase_14_launches_per_rank_step": phase_14_launches(1),
+        "phase_14_binned_launches_per_rank_step": phase_14_launches(None),
         "device_ms": benc["device_ms"],
         "launch_ms": benc["launch_ms"],
         "by_path": {f"{name} {path}": {k: v for k, v in r.items() if k != "bound_by"}
@@ -4803,6 +5049,7 @@ def main() -> int:
                                                     phase_12["12a_per_iteration"]],
                               "12b": phase_12["12b"][3]},
         "phase_13_launches_per_rank_step": phase_13_launches(2),
+        "phase_14_launches_per_rank_step": phase_14_launches(2),
     }]
     log("train_step: " + json.dumps({
         "warm_median_ms": step_ms, "peak_memory_gib": peak / 2**30,
@@ -4848,6 +5095,13 @@ def main() -> int:
               f"2; 13c train_odinw --mesh 1,2,2, {len(LIFECYCLE_TASKS)} tasks x {TP_SP_ITERS} "
               f"steps at batch {LIFECYCLE_BATCH}, against the plain run; what TP and SP cost "
               "on one card, no scaling"}))
+    log("phase 14: " + json.dumps({
+        **pipe_parallel,
+        "at": "Swin-T, BERT-base, d=256, 6+6 layers, 900 queries, f32, remat on, 800x1216 "
+              f"bucket; ranks sharing the card over gloo; {PP_MICRO} microbatches of a batch "
+              "of 2, a request and two AdamW steps against one process at batch 2; 14a "
+              "ZiRa under make_mesh(1, pipe=2), 14b CAT under make_mesh(1, model=2, pipe=2); "
+              "what PP costs on one card, no scaling"}))
     log(json.dumps({"kernels": kernels}))
     log(card_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -495,17 +495,19 @@ def test_one_process_is_the_identity():
 
 
 def test_make_mesh_and_the_scripts_refuse_what_is_not_ported(tmp_path, monkeypatch):
-    """`make_mesh` refuses what is still left: the pipe axis (ROADMAP Queue 1
-    item 6), and sizes whose product is not the process count, naming the
-    launch it expected; one process makes a mesh of one rank on every axis.
-    The scripts exit with those messages, not a traceback, and refuse a
-    batch that the data axis does not divide; `eval_coco` takes the data
-    axis alone, as the JAX package's."""
+    """`make_mesh` refuses sizes whose product is not the process count,
+    naming the launch it expected (a pipe axis too, which no driver flag
+    takes: its message names `make_mesh`); one process makes a mesh of one
+    rank on every axis. The scripts exit with those messages, not a
+    traceback, and refuse a batch that the data axis does not divide;
+    `train_odinw --mesh` takes three fields, `eval_coco`'s the data axis
+    alone, as the JAX package's; the driver's help names the pipeline's
+    API."""
     from ziragroundingdino_torch.scripts import eval_coco, train_odinw
 
     for sizes in ((1,), (-1,)):
         m = pmesh.make_mesh(*sizes)
-        assert (m.data, m.model, m.seq) == (1, 1, 1)
+        assert (m.data, m.model, m.seq, m.pipe) == (1, 1, 1, 1) and m.boundaries == []
         assert all(size == 1 for _, size, _ in m.axes.values())
     pdist.set_mesh(None)
     with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
@@ -513,10 +515,11 @@ def test_make_mesh_and_the_scripts_refuse_what_is_not_ported(tmp_path, monkeypat
     for kw in (dict(model=2), dict(seq=2)):
         with pytest.raises(ValueError, match="torchrun --nproc-per-node 2 .* --mesh 1,"):
             pmesh.make_mesh(1, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
+    with pytest.raises(ValueError, match=r"torchrun --nproc-per-node 2 .*make_mesh\(data=1, "
+                       r"model=1, seq=1, pipe=2\)"):
         pmesh.make_mesh(1, pipe=2)
     assert pmesh.parse_mesh("4") == (4, 1, 1) and pmesh.parse_mesh("2,2,1") == (2, 2, 1)
-    for bad in ("0", "1,2,3,4", "a"):
+    for bad in ("0", "1,2,3,4", "1,1,1,2", "a"):
         with pytest.raises(ValueError):
             pmesh.parse_mesh(bad)
 
@@ -543,7 +546,9 @@ def test_make_mesh_and_the_scripts_refuse_what_is_not_ported(tmp_path, monkeypat
     with pytest.raises(SystemExit, match="needs 2 processes but this one is 1 of 1"):
         train_odinw.main(train + ["--mesh", "1,2"])
     assert not pdist.is_initialized() and pdist.current_mesh() is None
-    assert "item 6" in train_odinw.LEFT_OUT and "pipeline" in train_odinw.LEFT_OUT
+    assert "pipeline_parallel" in train_odinw.EPILOG and "data[,model[,seq]]" in train_odinw.EPILOG
+    with pytest.raises(SystemExit, match="--mesh 1,1,1,2"):
+        train_odinw.main(train + ["--mesh", "1,1,1,2"])
 
 
 def test_rank_generators_and_the_eval_hook(tmp_path):

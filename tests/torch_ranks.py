@@ -210,56 +210,66 @@ class MsdaShapes:
 
 
 class SkewedOptimizer(poptim.Optimizer):
-    """The optimizer with every model rank's gradients moved apart before
-    its step (model rank m adds m * 1e-3 to each), as the card's unordered
-    float atomics move them; `differed` records whether a replicated
-    gradient then differed over the model axis."""
+    """The optimizer with every rank's gradients moved apart over an axis
+    (`axis`, the model axis unless set) before its step (rank m of the axis
+    adds m * 1e-3 to each), as the card's unordered float atomics move
+    them; `differed` records whether a replicated gradient then differed
+    over the axis (over the pipe axis an encoder layer's parameter is a
+    stage's own, not replicated)."""
 
     differed = False
+    axis = "model"
 
     def step(self):
-        from ziragroundingdino_torch.parallel import tp
+        from ziragroundingdino_torch.parallel import pp, tp
 
-        group, size, m = pdist.axis("model")
+        group, size, m = pdist.axis(self.axis)
         for p in self.params.values():
             if p.grad is not None:
                 p.grad.add_(m * 1e-3)
-        rep = [p.grad.reshape(-1) for p in self.params.values()
-               if p.grad is not None and not tp.is_sharded(p)]
+        rep = [p.grad.reshape(-1) for n, p in self.params.items()
+               if p.grad is not None and not tp.is_sharded(p)
+               and not (self.axis == "pipe" and pp.is_stage_param(n))]
         flat = torch.cat(rep)
         gathered = pdist.gather_cat(flat[None], 0, group, size)
         self.differed |= not all(torch.equal(g, flat) for g in gathered)
         return super().step()
 
 
-def replica_run(model, pcfg, batch, assignments, mesh, steps: int = 2):
+def replica_run(model, pcfg, batch, assignments, mesh, steps: int = 2, axis: str = "model",
+                microbatches=None):
     """`steps` train steps of `model` under `mesh` with `SkewedOptimizer`
-    (AdamW at lr 1e-2, the matcher pinned): (whether the model ranks'
-    replicated gradients differed before a step, whether their replicated
-    trainable parameters are bitwise equal after the steps)."""
+    over `axis` (AdamW at lr 1e-2, the matcher pinned), in the mesh's
+    `pipeline_parallel` (with `microbatches`) or `sequence_parallel` where
+    it has such an axis: (whether the ranks' replicated gradients differed
+    over `axis` before a step, whether their trainable parameters are
+    bitwise equal after the steps: over the model axis the replicated
+    ones, over the pipe axis all of them)."""
     import contextlib
 
     from ziragroundingdino_torch.config import OptimizerConfig, ScheduleConfig
-    from ziragroundingdino_torch.parallel import sp, tp
+    from ziragroundingdino_torch.parallel import pp, sp, tp
 
     poptim.set_trainable(model, poptim.trainable_patterns_for_cfg(pcfg),
                          freeze_all=pcfg.freeze_all)
     tp.shard_model_(model, mesh)
     opt = SkewedOptimizer(model, OptimizerConfig(lr=1e-2), ScheduleConfig())
+    opt.axis = axis
     net = pstep.wrap_ddp(model) if pstep.ddp_applies() else model
     t = {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
     rows = torch.from_numpy(np.concatenate(assignments)).long()
     orig, pcrit.match_batch = pcrit.match_batch, lambda *a, **k: rows
-    ctx = sp.sequence_parallel(mesh) if mesh.seq > 1 else contextlib.nullcontext()
+    ctx = (pp.pipeline_parallel(mesh, microbatches) if mesh.pipe > 1
+           else sp.sequence_parallel(mesh) if mesh.seq > 1 else contextlib.nullcontext())
     try:
         with ctx:
             for _ in range(steps):
                 pstep.train_step(net, opt, t)
     finally:
         pcrit.match_batch = orig
-    group, size, _ = pdist.axis("model")
+    group, size, _ = pdist.axis(axis)
     flat = torch.cat([p.detach().reshape(-1) for p in opt.params.values()
-                      if not tp.is_sharded(p)])
+                      if axis == "pipe" or not tp.is_sharded(p)])
     gathered = pdist.gather_cat(flat[None], 0, group, size)
     return opt.differed, all(torch.equal(g, flat) for g in gathered)
 
@@ -299,3 +309,136 @@ def job_tp_sp(rank, sizes, cases, odinw_args=None):
 
         report = train_odinw.main(odinw_args + ["--mesh", ",".join(map(str, sizes))])
     return out, report
+
+
+# ---------------------------------------------------------------------------
+# pipeline parallelism (`tests/test_torch_pp.py`)
+# ---------------------------------------------------------------------------
+
+
+class ReducedGrads(GradRecorder):
+    """`GradRecorder` that first makes the gradients what the optimizer's
+    update takes (`train.optim.Optimizer.step`): zeros where the backward
+    left None, one copy over the model and pipe axes; it keeps them whole
+    (a tensor-parallel shard gathered)."""
+
+    def step(self):
+        from ziragroundingdino_torch.parallel import pp, tp
+
+        for p in self.params.values():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        tp.mean_replicated_grads_(self.params.values())
+        pp.reduce_pipe_grads_(self.params.items())
+        out = super().step()
+        self.grads = {n: self.params[n].tp.full_of(g) if tp.is_sharded(self.params[n]) else g
+                      for n, g in self.grads.items()}
+        return out
+
+
+class LayerCalls:
+    """The encoder layers' calls, by index, through forward hooks."""
+
+    def __init__(self, model):
+        self.calls = []
+        for i, layer in enumerate(model.transformer.encoder.layers):
+            layer.register_forward_hook(lambda m, a, o, i=i: self.calls.append(i))
+
+    def take(self):
+        out, self.calls[:] = list(self.calls), []
+        return out
+
+
+def local_rows(batch, assignments, data_rank: int, data: int):
+    """The data rank's slice of a global numpy batch, and its rows of the
+    assignments ([outputs * B, N], output by output)."""
+    b = len(batch["pixels"])
+    lo, hi = data_rank * b // data, (data_rank + 1) * b // data
+    rows = np.asarray(assignments)
+    rows = rows.reshape(-1, b, rows.shape[-1])[:, lo:hi].reshape(-1, rows.shape[-1])
+    return {k: v[lo:hi] for k, v in batch.items()}, rows
+
+
+def pipe_run(model, pcfg, batch, assignments, seed=None, mesh=None, microbatches=None):
+    """`model`'s eval forward and one train step on `batch` (numpy, this
+    rank's), the matcher pinned to `assignments` and dropout drawn from a
+    generator seeded `seed` where given, under `pipeline_parallel(mesh,
+    microbatches)` where `mesh` is given (sharded first under a model axis,
+    the step through DDP where the data axis has more than one rank):
+    (pred_logits, pred_boxes, topk_idx, losses, the trainable gradients as
+    the optimizer takes them, whole; the eval forward's encoder-layer
+    calls, the eval forward's `pp.COUNTS`, the step's)."""
+    import contextlib
+
+    from ziragroundingdino_torch.parallel import pp, tp
+
+    poptim.set_trainable(model, poptim.trainable_patterns_for_cfg(pcfg),
+                         freeze_all=pcfg.freeze_all)
+    if mesh is not None:
+        tp.shard_model_(model, mesh)
+    calls = LayerCalls(model)
+    ctx = (pp.pipeline_parallel(mesh, microbatches) if mesh is not None
+           else contextlib.nullcontext())
+    t = {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
+    counts = []
+    with ctx:
+        pp.COUNTS.update(boundary=0, pipe=0)
+        with torch.no_grad():
+            out = model(t["pixels"], t["mask"], {k: t[k] for k in pstep.TEXT_KEYS})
+        counts.append(dict(pp.COUNTS))
+        eval_calls = calls.take()
+        net = pstep.wrap_ddp(model) if mesh is not None and pstep.ddp_applies() else model
+        rec = ReducedGrads(model)
+        gen = None if seed is None else torch.Generator().manual_seed(seed)
+        rows = torch.from_numpy(np.asarray(assignments)).long()
+        orig, pcrit.match_batch = pcrit.match_batch, lambda *a, **k: rows
+        pp.COUNTS.update(boundary=0, pipe=0)
+        try:
+            metrics = pstep.train_step(net, rec, t, gen)
+        finally:
+            pcrit.match_batch = orig
+        counts.append(dict(pp.COUNTS))
+    losses = {k: v.item() for k, v in metrics.items() if k != "grad_norm"}
+    return (out["pred_logits"], out["pred_boxes"], out["topk_idx"], losses, rec.grads,
+            eval_calls, counts[0], counts[1])
+
+
+def state_digest(model) -> str:
+    """A sha256 of `model.state_dict()` (whole weights: every model rank
+    calls it at once)."""
+    import hashlib
+
+    digest = hashlib.sha256()
+    for k, v in sorted(model.state_dict().items()):
+        digest.update(k.encode() + v.detach().contiguous().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def job_pp(rank, sizes, microbatches, cases, replicas=None):
+    """Each case's `pipe_run` on this data rank's slice of its global batch
+    under `make_mesh(data, model, 1, pipe)` for `sizes` = (data, model,
+    pipe), then, for the case labelled `replicas` where given, its
+    `replica_run` over the pipe axis and `state_digest`: ({label:
+    pipe_run's result}, this rank's (data, pipe, model) coordinates, the
+    replicas' result or None)."""
+    from ziragroundingdino_torch.parallel import mesh as pmesh
+
+    data, model_size, pipe = sizes
+    mesh = pmesh.make_mesh(data, model_size, 1, pipe)
+    d = mesh.axes["data"][2]
+    out = {}
+    for label, pcfg, sd, batch, assignments, seed in cases:
+        model = build_model(pcfg, device="cpu", dtype="float32")
+        model.load_state_dict(sd)
+        local, rows = local_rows(batch, assignments, d, data)
+        out[label] = pipe_run(model, pcfg, local, rows, seed, mesh, microbatches)
+    rep = None
+    if replicas is not None:
+        _, pcfg, sd, batch, assignments, _ = next(c for c in cases if c[0] == replicas)
+        model = build_model(pcfg, device="cpu", dtype="float32")
+        model.load_state_dict(sd)
+        local, rows = local_rows(batch, assignments, d, data)
+        rep = replica_run(model, pcfg, local, [rows], mesh, axis="pipe",
+                          microbatches=microbatches) + (state_digest(model),)
+    coords = (d, mesh.axes["pipe"][2], mesh.axes["model"][2])
+    return out, coords, rep

@@ -7,7 +7,9 @@ given per module (a bf16 matmul casts its f32 weight per call, as the JAX
 
 Dropout and stochastic depth (`dropout`, `drop_path`) draw their masks from
 an explicit `torch.Generator` passed down the forward; with none they are
-the identity, as the JAX package's `deterministic=True`.
+the identity, as the JAX package's `deterministic=True`. In a pipeline
+stage (`parallel/pp.py`) the generator's place is taken by a source of
+masks drawn beforehand, one microbatch's rows of them (`uniform(shape)`).
 
 Parameters are created empty and filled by `init_weights(model, generator)`
 from an explicit `torch.Generator`: every module that owns parameters
@@ -38,6 +40,15 @@ def xavier_uniform_(t: torch.Tensor, fan_in: int, fan_out: int, gen: torch.Gener
     _uniform_(t, math.sqrt(6.0 / (fan_in + fan_out)), gen)
 
 
+def uniform(shape, generator, device) -> torch.Tensor:
+    """U[0, 1) of `shape` from `generator`: a `torch.Generator`, or a source
+    of masks drawn beforehand that gives them by `uniform(shape)`
+    (`parallel.pp.MicrobatchMasks`)."""
+    if isinstance(generator, torch.Generator):
+        return torch.rand(shape, generator=generator, device=device)
+    return generator.uniform(tuple(shape))
+
+
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
             shard=None, dim: int = 1) -> torch.Tensor:
     """Inverted dropout (kept entries scaled by 1 / (1 - rate), as the JAX
@@ -50,7 +61,7 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
         return x
     keep = 1.0 - rate
     shape = x.shape if shard is None else shard.full_shape(x.shape, dim)
-    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    mask = uniform(shape, generator, x.device) < keep
     if shard is not None:
         mask = shard.take(mask, dim)
     return torch.where(mask, x / keep, 0.0).to(x.dtype)
@@ -64,7 +75,7 @@ def drop_path(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]
         return x
     keep = 1.0 - rate
     shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    mask = uniform(shape, generator, x.device) < keep
     return torch.where(mask, x / keep, 0.0).to(x.dtype)
 
 

@@ -48,7 +48,7 @@ from ziragroundingdino_torch.models.layers import (
 from ziragroundingdino_torch.models.remat import checkpoint
 from ziragroundingdino_torch.ops.box_ops import inverse_sigmoid
 from ziragroundingdino_torch.ops.msda import ms_deform_attn
-from ziragroundingdino_torch.parallel import sp
+from ziragroundingdino_torch.parallel import pp, sp
 
 SpatialShapes = Tuple[Tuple[int, int], ...]
 
@@ -273,7 +273,8 @@ class FeatureEnhancer(nn.Module):
     has them. Returns (image memory, text memory, the layers' summed f32
     adapter loss). In a `parallel.sp.sequence_parallel` context each seq
     rank runs the layers on its chunk of the tokens, and the memory is
-    gathered once after the last layer."""
+    gathered once after the last layer; in a `parallel.pp.pipeline_parallel`
+    one each pipe rank runs its stage's layers on microbatches."""
 
     def __init__(self, cfg: GroundingDINOConfig, compute_dtype: Optional[torch.dtype]):
         super().__init__()
@@ -288,28 +289,50 @@ class FeatureEnhancer(nn.Module):
                              dropout=cfg.fusion_dropout, drop_path=cfg.fusion_droppath)
             for _ in range(n)) if cfg.use_fusion_layer else None
 
+    def layer_step(self, i, src, text, pos, reference_points, spatial_shapes, key_padding_mask,
+                   text_token_mask, text_self_attention_masks, pos_text, generator=None,
+                   shard=None):
+        """Encoder layer i: fusion -> text layer -> deformable layer, each
+        recomputed in the backward where the config says; (src, text, the
+        layer's adapter loss). The sequential loop and a pipeline stage
+        (`parallel/pp.py`) both run it."""
+        cfg = self.cfg
+        if self.fusion_layers is not None:
+            args = (src, text, key_padding_mask, text_token_mask, generator, shard)
+            src, text = (checkpoint(self.fusion_layers[i], *args, generator=generator)
+                         if cfg.use_checkpoint else self.fusion_layers[i](*args))
+        if self.text_layers is not None:
+            text = self.text_layers[i](text, text_self_attention_masks, pos_text, generator)
+        args = (src, pos, reference_points, spatial_shapes, key_padding_mask, shard)
+        layer = self.layers[i]
+        src, loss = checkpoint(layer, *args) if cfg.use_transformer_ckpt else layer(*args)
+        return src, text, loss
+
     def forward(self, src, pos, spatial_shapes, valid_ratios, key_padding_mask, text,
                 text_token_mask, text_self_attention_masks, position_ids, generator=None):
         cfg = self.cfg
         reference_points = encoder_reference_points(spatial_shapes, valid_ratios)
-        shard = sp.token_shard(src.shape[1], src.device)
-        if shard is not None:
-            src, pos, reference_points = (shard.take(t) for t in (src, pos, reference_points))
-            key_padding_mask = shard.take_mask(key_padding_mask)
+        pos_text = None
         if self.text_layers is not None:
             pos_text = get_sine_pos_embed(position_ids[..., None].float(),
                                           num_pos_feats=cfg.hidden_dim,
                                           exchange_xy=False).to(src.dtype)
+        # under pipeline_parallel (parallel/pp.py): GPipe the layers over the
+        # mesh's pipe axis in place of the loop below, as JAX's `:306-315`
+        if pp.active() is not None:
+            return pp.pipelined_enhancer(self, src, pos, reference_points, spatial_shapes,
+                                         key_padding_mask, text, text_token_mask,
+                                         text_self_attention_masks, pos_text, generator)
+        shard = sp.token_shard(src.shape[1], src.device)
+        if shard is not None:
+            src, pos, reference_points = (shard.take(t) for t in (src, pos, reference_points))
+            key_padding_mask = shard.take_mask(key_padding_mask)
         adapter_loss = zero_loss(src)
-        for i, layer in enumerate(self.layers):
-            if self.fusion_layers is not None:
-                args = (src, text, key_padding_mask, text_token_mask, generator, shard)
-                src, text = (checkpoint(self.fusion_layers[i], *args, generator=generator)
-                             if cfg.use_checkpoint else self.fusion_layers[i](*args))
-            if self.text_layers is not None:
-                text = self.text_layers[i](text, text_self_attention_masks, pos_text, generator)
-            args = (src, pos, reference_points, spatial_shapes, key_padding_mask, shard)
-            src, loss = checkpoint(layer, *args) if cfg.use_transformer_ckpt else layer(*args)
+        for i in range(cfg.enc_layers):
+            src, text, loss = self.layer_step(i, src, text, pos, reference_points, spatial_shapes,
+                                              key_padding_mask, text_token_mask,
+                                              text_self_attention_masks, pos_text, generator,
+                                              shard)
             adapter_loss = adapter_loss + loss
         if shard is not None:
             src = shard.gather(src)

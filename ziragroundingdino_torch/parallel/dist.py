@@ -7,7 +7,7 @@ the JAX package's `model` and `seq` mesh axes.
 `torchrun --nproc-per-node N` starts the processes and sets `RANK`,
 `WORLD_SIZE`, `LOCAL_RANK`, `MASTER_ADDR` and `MASTER_PORT`;
 `init_from_env` reads them. `parallel.mesh.make_mesh` lays the processes out
-as a `data x seq x model` mesh and registers it here (`set_mesh`; one mesh
+as a `data x pipe x seq x model` mesh and registers it here (`set_mesh`; one mesh
 a process, as the default process group is one a process, so that the
 model's global-batch sums need no mesh passed down to them; `destroy`
 clears it); each collective then reduces over one axis of it, named by
@@ -19,6 +19,8 @@ clears it); each collective then reduces over one axis of it, named by
     the images of a batch take their sums over the data axis alone
     (`all_reduce_sum`, `global_divisor`, `mean_over_ranks`), because the
     model and seq ranks of one replica hold the same images;
+  * "pipe": the ranks that hold the stages of one pipeline over the
+    encoder's layers (`parallel/pp.py`);
   * "model": the ranks that hold the shards of one tensor-parallel weight
     (`parallel/tp.py`);
   * "seq": the ranks that hold the chunks of one image's encoder tokens
@@ -41,8 +43,8 @@ one device). On an H100 with PyTorch 2.11 (CUDA 12.8), gloo took on CUDA
 tensors, in f32 and bf16, all_reduce (sum and max), all_gather, broadcast,
 all_gather_into_tensor, reduce_scatter, reduce_scatter_tensor and
 all_to_all_single; a `send` / `recv` pair aborted the process (gloo:
-"writev: Bad address"), so a pipeline stage's transfer cannot be a send on
-card tensors there. `chip_smoke.py` phase 13 probes the collectives the
+"writev: Bad address"), so a pipeline stage's transfer is a `broadcast`
+in the group of the two neighbouring stages (`parallel/pp.py`). `chip_smoke.py` phase 13 probes the collectives the
 port uses (`PORT_COLLECTIVES` there) before it runs the mesh.
 """
 
@@ -90,8 +92,8 @@ def current_mesh():
 
 def axis(name: str) -> Tuple[Optional[Any], int, int]:
     """(group, size, this process's rank in it) of a mesh axis: "data",
-    "model", "seq" or "grad" (data x seq). Without a mesh "data" and "grad"
-    are every process, "model" and "seq" this one alone."""
+    "pipe", "model", "seq" or "grad" (data x seq). Without a mesh "data" and
+    "grad" are every process, the others this one alone."""
     if _MESH is not None:
         return _MESH.axes[name]
     if name in ("data", "grad"):

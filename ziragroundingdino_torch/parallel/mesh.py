@@ -1,15 +1,21 @@
 """The device mesh, the port of the JAX package's `parallel/mesh.py`
 (`:25-103`). A mesh lays the processes that `torchrun` started out as
-`data x seq x model`, `model` innermost as in JAX (`:46-50`; `pipe`, the
-fourth JAX axis, is not ported: ROADMAP Queue 1 item 6): the process of
-global rank r = (d * seq + s) * model + m has coordinates (d, s, m), and
-every axis has one process group per line of ranks along it
-(`torch.distributed.new_group`, created by every rank in one order).
-`make_mesh` registers the mesh with `parallel.dist`, whose collectives
-then reduce over its axes.
+`data x pipe x seq x model`, `model` innermost as in JAX (`:46-50`): the
+process of global rank r = ((d * pipe + p) * seq + s) * model + m has
+coordinates (d, p, s, m), so every mesh with one pipe stage keeps the
+ranks of a `data x seq x model` one. Every axis has one process group per
+line of ranks along it (`torch.distributed.new_group`, created by every
+rank in one order). `make_mesh` registers the mesh with `parallel.dist`,
+whose collectives then reduce over its axes.
 
   * `data`: batch sharding, DDP (the reference's only strategy,
     `train_net.py:246`);
+  * `pipe`: pipeline parallelism over the encoder's layers
+    (`parallel/pp.py`); besides the pipe line, each pair of neighbouring
+    stages of it has a group of its two ranks (`Mesh.boundaries`). As in
+    JAX, no driver flag reaches it: a caller enters
+    `pp.pipeline_parallel(mesh)` (`train_odinw --mesh` takes
+    data[,model[,seq]], as the JAX driver's);
   * `model`: tensor parallelism, JAX's `_TP_RULES` applied to the port's
     parameters (`tp_targets`, `parallel/tp.py`);
   * `seq`: sequence parallelism over the encoder's tokens
@@ -22,14 +28,11 @@ import argparse
 import os
 import re
 from dataclasses import dataclass, field
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch.distributed as tdist
 
 from ziragroundingdino_torch.parallel import dist
-
-PP_NOT_PORTED = ("pipeline parallelism (the mesh's pipe axis) is not ported yet: "
-                 "ROADMAP Queue 1 item 6")
 
 # param-path regexes -> the JAX kernel's sharded dimension, copied rule for
 # rule from the JAX package (`parallel/mesh.py:56-65`; P(None, "model") is
@@ -52,14 +55,19 @@ _TP_RULES = (
 @dataclass
 class Mesh:
     """Axis sizes, this process's coordinates, and `axes`: {"data",
-    "model", "seq", "grad" (data x seq): (process group, size, rank in it)};
-    a group of None is the default group, and an axis of one rank has
-    none."""
+    "pipe", "model", "seq", "grad" (data x seq): (process group, size,
+    rank in it)}; a group of None is the default group, and an axis of one
+    rank has none. `boundaries[b]`, for each pair of neighbouring stages
+    (b, b + 1) of this process's pipe line: (the pair's process group, the
+    global rank of stage b, that of stage b + 1) where this process is one
+    of the two, else None."""
 
     data: int = 1
     model: int = 1
     seq: int = 1
+    pipe: int = 1
     axes: Dict[str, tuple] = field(default_factory=dict)
+    boundaries: List[Optional[tuple]] = field(default_factory=list)
 
 
 def parse_mesh(spec: str) -> Tuple[int, int, int]:
@@ -72,49 +80,61 @@ def parse_mesh(spec: str) -> Tuple[int, int, int]:
     return sizes[0], sizes[1], sizes[2]
 
 
-def _launch(data: int, model: int, seq: int) -> str:
-    n = data * model * seq
+def _launch(data: int, model: int, seq: int, pipe: int = 1) -> str:
+    n = data * model * seq * pipe
+    if pipe > 1:  # no driver flag takes the pipe axis, as in JAX
+        return (f"torchrun --nproc-per-node {n} <script>` whose processes call "
+                f"`make_mesh(data={data}, model={model}, seq={seq}, pipe={pipe})")
     spec = f"{data},{model},{seq}" if model * seq > 1 else f"{data}"
     return (f"torchrun --nproc-per-node {n} -m ziragroundingdino_torch.scripts.<script> "
             f"--mesh {spec} ...")
 
 
 def make_mesh(data: int = -1, model: int = 1, seq: int = 1, pipe: int = 1) -> Mesh:
-    """The `data x seq x model` mesh over every process of the group
-    (`data=-1`: the processes that `model * seq` leaves), checked against
-    the processes there are, with one process group per line of each axis
-    of more than one rank; registered with `parallel.dist`. `pipe` above 1
-    raises NotImplementedError."""
-    if pipe > 1:
-        raise NotImplementedError(f"mesh data={data} model={model} seq={seq} pipe={pipe}: "
-                                  + PP_NOT_PORTED)
+    """The `data x pipe x seq x model` mesh over every process of the group
+    (`data=-1`: the processes that `model * seq * pipe` leaves), checked
+    against the processes there are, with one process group per line of
+    each axis of more than one rank and one per pair of neighbouring pipe
+    stages; registered with `parallel.dist`. The "grad" axis (DDP's, data x
+    seq) and the "model" lines are taken at a fixed pipe coordinate."""
     n = dist.process_count()
-    fixed = model * seq
+    fixed = model * seq * pipe
     if data == -1:
         if n % fixed:
-            raise ValueError(f"{n} processes not divisible by model*seq={fixed}")
+            raise ValueError(f"{n} processes not divisible by model*seq*pipe={fixed}")
         data = n // fixed
     if data * fixed != n:
         raise ValueError(
-            f"mesh data={data} model={model} seq={seq} needs {data * fixed} processes but "
-            f"this one is 1 of {n}{'' if dist.is_initialized() else ' (no process group)'}: "
-            f"launch it as `{_launch(data, model, seq)}`")
+            f"mesh data={data} model={model} seq={seq} pipe={pipe} needs {data * fixed} "
+            f"processes but this one is 1 of {n}"
+            f"{'' if dist.is_initialized() else ' (no process group)'}: "
+            f"launch it as `{_launch(data, model, seq, pipe)}`")
     r = dist.process_index()
-    d, s, m = r // (seq * model), r // model % seq, r % model
+    d, p = r // (pipe * seq * model), r // (seq * model) % pipe
+    s, m = r // model % seq, r % model
 
-    def rank_of(d_, s_, m_):
-        return (d_ * seq + s_) * model + m_
+    def rank_of(d_, p_, s_, m_):
+        return ((d_ * pipe + p_) * seq + s_) * model + m_
+
+    def lines_along(size, at):
+        """Every line of the axis whose coordinate `at(i, rest)` places, one
+        per value of the other coordinates."""
+        rest = [(d_, p_, s_, m_) for d_ in range(data) for p_ in range(pipe)
+                for s_ in range(seq) for m_ in range(model)]
+        out = []
+        for c in rest:
+            line = [rank_of(*at(i, c)) for i in range(size)]
+            if line not in out:
+                out.append(line)
+        return out
 
     lines = {  # axis: (its size, this rank's coordinate, every line's ranks)
-        "data": (data, d, [[rank_of(i, s_, m_) for i in range(data)]
-                           for s_ in range(seq) for m_ in range(model)]),
-        "seq": (seq, s, [[rank_of(d_, i, m_) for i in range(seq)]
-                         for d_ in range(data) for m_ in range(model)]),
-        "model": (model, m, [[rank_of(d_, s_, i) for i in range(model)]
-                             for d_ in range(data) for s_ in range(seq)]),
-        "grad": (data * seq, d * seq + s, [[rank_of(i // seq, i % seq, m_)
-                                             for i in range(data * seq)]
-                                            for m_ in range(model)]),
+        "data": (data, d, lines_along(data, lambda i, c: (i, c[1], c[2], c[3]))),
+        "pipe": (pipe, p, lines_along(pipe, lambda i, c: (c[0], i, c[2], c[3]))),
+        "seq": (seq, s, lines_along(seq, lambda i, c: (c[0], c[1], i, c[3]))),
+        "model": (model, m, lines_along(model, lambda i, c: (c[0], c[1], c[2], i))),
+        "grad": (data * seq, d * seq + s,
+                 lines_along(data * seq, lambda i, c: (i // seq, c[1], i % seq, c[3]))),
     }
     axes = {}
     for name, (size, coord, all_lines) in lines.items():
@@ -134,7 +154,17 @@ def make_mesh(data: int = -1, model: int = 1, seq: int = 1, pipe: int = 1) -> Me
                 if r in ranks:
                     group = g
             axes[name] = (group, size, coord)
-    mesh = Mesh(data=data, model=model, seq=seq, axes=axes)
+    # a group per pair of neighbouring stages of each pipe line, so that the
+    # pipeline's transfers between stages wait on those two ranks alone;
+    # with two stages the pair is the pipe line
+    boundaries: List[Optional[tuple]] = [None] * (pipe - 1)
+    for b in range(pipe - 1):
+        for line in lines["pipe"][2]:
+            pair = line[b:b + 2]
+            g = axes["pipe"][0] if pipe == 2 else tdist.new_group(pair)
+            if r in pair:
+                boundaries[b] = (g, pair[0], pair[1])
+    mesh = Mesh(data=data, model=model, seq=seq, pipe=pipe, axes=axes, boundaries=boundaries)
     dist.set_mesh(mesh)
     return mesh
 

@@ -50,15 +50,17 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-LEFT_OUT = ("Not ported yet: pipeline parallelism (the JAX mesh's pipe axis, ROADMAP Queue 1 "
-            "item 6).")
+EPILOG = ("--mesh takes data[,model[,seq]], as the JAX package's driver. Pipeline "
+          "parallelism (the mesh's pipe axis) has no flag there either: a caller builds "
+          "`parallel.mesh.make_mesh(..., pipe=N)` and runs under "
+          "`parallel.pp.pipeline_parallel(mesh, microbatches=M)`.")
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     from ziragroundingdino_torch.config import MODEL_PRESETS
     from ziragroundingdino_torch.parallel import mesh
 
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0], epilog=LEFT_OUT)
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0], epilog=EPILOG)
     ap.add_argument("--checkpoint", required=True, help="reference-format .pth")
     ap.add_argument("--vocab", required=True, help="bert-base-uncased vocab.txt")
     ap.add_argument("--datasets-root", default="datasets/odinw")
