@@ -4065,7 +4065,7 @@ class _MsdaRecorder:
 
 
 def _tp_sp_run(build_model, optim, step, batch, mesh=None, pinned=None,
-               preset: str = DP_PRESETS[0], microbatches=None, reduced_grads=False) -> dict:
+               preset: str = DP_PRESETS[0], microbatches=None, dropout_seed=None) -> dict:
     """`preset` (the ZiRa one unless named) at full width (DP_DTYPE, remat,
     phase 11's seeded weights, CAT's adapters drawn by
     `_seeded_pet_modules`) on `batch`: one request (the eval forward) and
@@ -4075,11 +4075,14 @@ def _tp_sp_run(build_model, optim, step, batch, mesh=None, pinned=None,
     axis), or in this process alone without one, recording the queries it
     chose and the assignments it used; with `pinned` (the one process's
     record) it replays them. The steps are the driver's optimizer's (AdamW
-    at lr 1e-3, clip 0.1). Returns the request's detections, the first
-    step's losses and trainable gradients (whole; this rank's, before the
-    optimizer's mean over the model axis, or, with `reduced_grads`, as the
-    update takes them: zero-filled, one copy over the model and pipe axes,
-    before the clip), the launches of each step (and the binned
+    at lr 1e-3, clip 0.1); with `dropout_seed`, a step with dropout from a
+    CUDA generator of that seed comes first, its gradients kept and the
+    weights left as they are (`_GradKeeper`). Returns the request's
+    detections, the first AdamW step's losses and trainable gradients
+    (whole, zeros where the backward left None; this rank's, as the
+    backward leaves them: before the optimizer's mean over the model and
+    pipe axes), those of the dropout step and its launches where it ran,
+    the launches of each AdamW step (and the binned
     `msda_backward` ones), the MSDA calls' shapes and the first
     query-sharded call, the sharded weights' element counts, whether the
     sharded model's `state_dict()` is the one process's weights bitwise,
@@ -4090,7 +4093,7 @@ def _tp_sp_run(build_model, optim, step, batch, mesh=None, pinned=None,
     from ziragroundingdino_torch.models import transformer
     from ziragroundingdino_torch.ops.lsap import lsap_cuda
     from ziragroundingdino_torch.ops.msda_cuda import msda_backward, msda_forward
-    from ziragroundingdino_torch.parallel import dist, pp, sp, tp
+    from ziragroundingdino_torch.parallel import pp, sp, tp
     from ziragroundingdino_torch.train import criterion
 
     model = _dp_model(build_model, optim, preset, DP_CARD, **REMAT)
@@ -4118,23 +4121,12 @@ def _tp_sp_run(build_model, optim, step, batch, mesh=None, pinned=None,
              for i, layer in enumerate(model.transformer.encoder.layers)]
 
     def capture():
-        first.update((n, p.grad.detach().float().cpu()) for n, p in opt.params.items()
-                     if p.grad is not None)
+        first.update((n, (torch.zeros_like(p) if p.grad is None else p.grad).detach().float()
+                      .cpu()) for n, p in opt.params.items())
         del opt.step
         return opt.step()
 
-    reduce_pipe = pp.reduce_pipe_grads_
-
-    def reduced_then_captured(named):
-        named = list(named)
-        reduce_pipe(named)
-        if not first:
-            first.update((n, p.grad.detach().float().cpu()) for n, p in named)
-
-    if reduced_grads:
-        pp.reduce_pipe_grads_ = reduced_then_captured
-    else:
-        opt.step = capture
+    opt.step = capture
     net = step.wrap_ddp(model) if mesh is not None and step.ddp_applies() else model
     chosen, used = [], []
     select_topk, match_batch = transformer.select_topk, criterion.match_batch
@@ -4161,6 +4153,21 @@ def _tp_sp_run(build_model, optim, step, batch, mesh=None, pinned=None,
             request = {k: out[k].float().cpu() for k in ("pred_logits", "pred_boxes")}
             request_launches = tuple(c.launches - b for c, b in zip(counters, before))
             request_layers, layer_calls[:] = list(layer_calls), []
+            dropout = None
+            if dropout_seed is not None:
+                keeper = _GradKeeper(model)
+                before = tuple(c.launches for c in counters)
+                before_binned = msda_backward.binned_launches
+                metrics = step.train_step(
+                    net, keeper, batch, torch.Generator(device=DP_CARD).manual_seed(dropout_seed))
+                dropout = {
+                    "losses": {k: float(v) for k, v in metrics.items() if k != "grad_norm"},
+                    "grads": {n: (params[n].tp.full_of(g.to(DP_CARD)).cpu() if n in targets
+                                  else g) for n, g in keeper.grads.items()},
+                    "launches": tuple(c.launches - b for c, b in zip(counters, before)),
+                    "binned": msda_backward.binned_launches - before_binned,
+                    "layers": sorted(set(layer_calls))}
+                layer_calls[:] = []
             for i in range(2):
                 before = tuple(c.launches for c in counters)
                 before_binned, before_counts = msda_backward.binned_launches, dict(pp.COUNTS)
@@ -4180,7 +4187,6 @@ def _tp_sp_run(build_model, optim, step, batch, mesh=None, pinned=None,
                                  else g) for n, g in first.items()}
         finally:
             transformer.select_topk, criterion.match_batch = select_topk, match_batch
-            pp.reduce_pipe_grads_ = reduce_pipe
             for h in hooks:
                 h.remove()
     cfg = model.cfg
@@ -4196,7 +4202,7 @@ def _tp_sp_run(build_model, optim, step, batch, mesh=None, pinned=None,
               "assignments_moved": (0 if pinned is None else sum(
                   int((u.cpu() != p).sum()) for u, p in zip(used, pinned["assignments"]))),
               "binned": binned, "request_layers": request_layers, "step_layers": step_layers,
-              "transfers": transfers}
+              "transfers": transfers, "dropout": dropout}
     if piped:
         import hashlib
 
@@ -4480,9 +4486,13 @@ def phase_tensor_sequence_parallel(build_model, optim, step, tokenizer_mod, tran
     return result
 
 
-PP_MESHES = (("14a", (1, 1, 2), "dualzerorepbranchgroundingdino"),  # (label, (data,
-              ("14b", (1, 2, 2), "catgroundingdino"))  # model, pipe), preset)
+# (label, (data, model, pipe), preset, the seed of a first step with dropout
+# or None)
+PP_MESHES = (("14a", (1, 1, 2), "dualzerorepbranchgroundingdino", 14),
+             ("14b", (1, 2, 2), "catgroundingdino", None))
 PP_MICRO = 2  # microbatches: the local batch of 2 in two
+ENCODER_LAYERS = tuple(f"transformer.encoder.{k}." for k in ("layers", "text_layers",
+                                                             "fusion_layers"))
 
 
 def run_ranks14(kind: str, n: int, root: pathlib.Path, timeout: int = 600) -> float:
@@ -4521,12 +4531,12 @@ def phase14_worker(label: str, root: pathlib.Path) -> None:
     torch.backends.cudnn.allow_tf32 = False
     rank = int(os.environ["RANK"])
     dist.init_from_env(DP_CARD, "gloo")
-    _, (data, model, pipe), preset = next(m for m in PP_MESHES if m[0] == label)
+    _, (data, model, pipe), preset, seed = next(m for m in PP_MESHES if m[0] == label)
     batch = _dp_inputs(pc, tokenizer_mod, transforms, DP_CARD)
     pinned = torch.load(root / f"pinned_{label}.pt")
     mesh = pmesh.make_mesh(data, model, 1, pipe)
     out = _tp_sp_run(build_model, optim, step, batch, mesh, pinned, preset=preset,
-                     microbatches=PP_MICRO, reduced_grads=True)
+                     microbatches=PP_MICRO, dropout_seed=seed)
     out["coords"] = (mesh.axes["data"][2], mesh.axes["pipe"][2], mesh.axes["model"][2])
     dist.destroy()
     torch.save(out, root / f"{label}_rank{rank}.pt")
@@ -4544,9 +4554,13 @@ def phase_pipeline_parallel(build_model, optim, step, tokenizer_mod, transforms,
       adapters are stage-owned and whose adapter loss crosses the stages),
       its adapters drawn by `_seeded_pet_modules`;
     each a request and two AdamW steps at batch 2 against this process at
-    batch 2, the query choice and assignments replayed: the first step's
-    losses within DP_PINNED_TOL[0], every trainable gradient (as the
-    update takes it) within DP_PINNED_TOL[1] of its scale, the request's
+    batch 2 (14a first a step with dropout from a seeded CUDA generator,
+    whose masks each stage takes a microbatch's rows of, and remat
+    replays), the query choice and assignments replayed: the first step's
+    (and the dropout step's) losses within DP_PINNED_TOL[0], every
+    trainable gradient (as the backward leaves it on the rank: an encoder
+    layer's summed over the pipe line) within DP_PINNED_TOL[1] of its
+    scale, the dropout step's losses away from the first AdamW step's, the request's
     logits and boxes within REQUEST_TOL, every rank's trainable weights
     and `state_dict()` bitwise alike after the steps; each rank runs its
     own stage's layers alone, and a step joins 2 PP_MICRO transfers a
@@ -4560,16 +4574,16 @@ def phase_pipeline_parallel(build_model, optim, step, tokenizer_mod, transforms,
     result = {"card": card_line}
     batch = _dp_inputs(pc, tokenizer_mod, transforms, DP_CARD)
     refs = {}
-    for label, _, preset in PP_MESHES:
+    for label, _, preset, seed in PP_MESHES:
         refs[label] = _tp_sp_run(build_model, optim, step, batch, preset=preset,
-                                 reduced_grads=True)
+                                 dropout_seed=seed)
         torch.save({k: refs[label][k] for k in ("topk_idx", "assignments")},
                    root / f"pinned_{label}.pt")
         torch.cuda.empty_cache()
     del batch
     torch.cuda.empty_cache()
     failed = []
-    for label, (data, model, pipe), preset in PP_MESHES:
+    for label, (data, model, pipe), preset, seed in PP_MESHES:
         n = data * model * pipe
         launch_s = run_ranks14(label, n, root)
         ranks = [torch.load(root / f"{label}_rank{r}.pt", weights_only=False) for r in range(n)]
@@ -4578,6 +4592,13 @@ def phase_pipeline_parallel(build_model, optim, step, tokenizer_mod, transforms,
         chunk = enc // pipe
         # remat: each stage's layers twice, once a microbatch
         want = (2 * chunk * PP_MICRO + dec_layers, chunk * PP_MICRO + dec_layers, 1)
+        # an encoder layer's gradients, where the preset trains one, take one
+        # all-reduce over the pipe line a step
+        stage_trained = int(any(n.startswith(ENCODER_LAYERS) for n in ref["grads"]))
+        if ref["dropout"] is not None:
+            moved = abs(ref["dropout"]["losses"]["total_loss"] - ref["losses"]["total_loss"])
+            if moved <= 1e-4 * abs(ref["losses"]["total_loss"]):
+                failed.append(f"{label}: the dropout step's loss is the plain step's ({moved})")
         recs = []
         for r, got in enumerate(ranks):
             d, p, m = got["coords"]
@@ -4598,7 +4619,22 @@ def phase_pipeline_parallel(build_model, optim, step, tokenizer_mod, transforms,
                    "own_slots_reordered": got["slots_reordered"],
                    "own_assignments_moved": got["assignments_moved"],
                    "step_ms": got["step_ms"], "peak_gib": got["peak_gib"]}
-            if (rec["loss_max_rel_err"] > DP_PINNED_TOL[0]
+            bad_dropout = False
+            if ref["dropout"] is not None:
+                dref, dgot = ref["dropout"], got["dropout"]
+                derrs = {k: abs(dgot["losses"][k] - v) / max(abs(v), 1e-30)
+                         for k, v in dref["losses"].items()}
+                dgrads = _grad_errors(dgot["grads"], dref["grads"])
+                rec["dropout_step"] = {
+                    "loss_max_rel_err": max(derrs.values()), "worst_losses": _worst(derrs),
+                    "grad_max_rel_err": max(dgrads.values()), "worst_grads": _worst(dgrads),
+                    "launches": dgot["launches"], "binned": dgot["binned"],
+                    "layers": dgot["layers"]}
+                bad_dropout = (max(derrs.values()) > DP_PINNED_TOL[0]
+                               or max(dgrads.values()) > DP_PINNED_TOL[1]
+                               or dgot["launches"] != want or dgot["binned"] != chunk * PP_MICRO
+                               or dgot["layers"] != own)
+            if (bad_dropout or rec["loss_max_rel_err"] > DP_PINNED_TOL[0]
                     or rec["grad_max_rel_err"] > DP_PINNED_TOL[1]
                     or rec["request_max_err"] > REQUEST_TOL or not got["full_bitwise"]
                     or got["launches"] != [want] * 2
@@ -4607,7 +4643,7 @@ def phase_pipeline_parallel(build_model, optim, step, tokenizer_mod, transforms,
                     or got["request_layers"] != own * PP_MICRO
                     or got["step_layers"] != [own] * 2
                     or got["transfers"] != [{"boundary": 2 * PP_MICRO * neighbours,
-                                             "pipe": 2}] * 2):
+                                             "pipe": 2, "grads": stage_trained}] * 2):
                 failed.append(f"{label} rank {r} (losses {DP_PINNED_TOL[0]}, gradients "
                               f"{DP_PINNED_TOL[1]}, request {REQUEST_TOL}, launches {want}): "
                               f"{rec}")
@@ -4621,7 +4657,7 @@ def phase_pipeline_parallel(build_model, optim, step, tokenizer_mod, transforms,
             failed.append(f"{label}: the ranks' weights differ after the steps: trainable "
                           f"{differ[:4]} ({len(differ)}), state_dict digests {len(digests)}")
         result[label] = {"mesh": {"data": data, "model": model, "pipe": pipe}, "preset": preset,
-                         "microbatches": PP_MICRO, "ranks": recs,
+                         "microbatches": PP_MICRO, "dropout_seed": seed, "ranks": recs,
                          "trainable_weights_bitwise_alike": not differ,
                          "state_dict_bitwise_alike": len(digests) == 1,
                          "trainable_weights": len(ranks[0]["replicas"]),
@@ -4916,7 +4952,7 @@ def main() -> int:
         """Each mesh's launches a step on every rank, the kernel's `i`th
         count, and (`i` None) the binned `msda_backward` ones."""
         return {label: [r["binned_per_step"][0] if i is None else r["launches_per_step"][0][i]
-                        for r in pipe_parallel[label]["ranks"]] for label, _, _ in PP_MESHES}
+                        for r in pipe_parallel[label]["ranks"]] for label, *_ in PP_MESHES}
 
     # result
     enc, dec = rec["encoder"], rec["decoder"]

@@ -21,6 +21,10 @@ layers (as `tests/test_pp.py`), microbatches 2:
   * the replicated and stage-owned trainable weights stay bitwise alike
     over the pipe axis after AdamW steps whose gradients were moved apart
     on each rank;
+  * CAT under pipe 2 with `batch_size_scale` 2: the gradients that a
+    checkpoint between the two calls holds and those that the update
+    applies, against the port's one process at PORT_TOL (each call's
+    stage-owned gradients counted once);
   * the refusals, with JAX's messages: seq with pipe, `enc_layers % pipe`,
     the batch by the microbatches.
 """
@@ -39,7 +43,7 @@ from tests.test_torch_pet import preset_overrides
 from tests.test_torch_tp_sp import _batch, _check_step, _err, _recorded
 from tests.test_train_step import make_batch
 from tests.torch_common import TinyPair, port_config
-from tests.torch_ranks import job_pp, pipe_run, run_ranks
+from tests.torch_ranks import accumulate_run, job_pp, pipe_run, run_ranks
 from ziragroundingdino_torch.models import build_model
 from ziragroundingdino_torch.parallel import mesh as pmesh
 from ziragroundingdino_torch.parallel import pp, sp
@@ -64,6 +68,7 @@ CASES = {"pipe2": ("zira", "cat", "dropout", "dropout_remat"),
 AGAINST_JAX = [("pipe2", "zira"), ("pipe4", "zira"), ("data2_pipe2", "zira4"),
                ("model2_pipe2", "zira"), ("pipe2", "cat"), ("model2_pipe2", "cat")]
 REPLICAS = {"pipe2": "cat", "model2_pipe2": "cat"}
+ACCUMULATE = {"pipe2": "cat4"}  # its global batch of 4 in two calls of 2
 RANKS_TIMEOUT = 900  # s; the four meshes' rank runs take ~40 s on one worker
 
 
@@ -147,16 +152,25 @@ def runs():
     one, rows = {}, {}
     for label, (pcfg, sd, batch, seed) in inputs.items():
         one[label], rows[label] = _one_process(pcfg, sd, batch, seed)
+    acc_one = {}
+    for label in set(ACCUMULATE.values()):
+        pcfg, sd, batch, _ = inputs[label]
+        model = build_model(pcfg, device="cpu", dtype="float32")
+        model.load_state_dict(sd)
+        acc_one[label] = accumulate_run(model, pcfg, batch, rows[label])
 
     ranks, failed = {}, []
 
     def rank_runs():
         try:
             for name, sizes in MESHES.items():
-                cases = [(label, inputs[label][0], inputs[label][1], inputs[label][2],
-                          rows[label], inputs[label][3]) for label in CASES[name]]
-                ranks[name] = run_ranks(job_pp, sizes, MICRO, cases, REPLICAS.get(name),
-                                        world=int(np.prod(sizes)))
+                def case(label):
+                    pcfg, sd, batch, seed = inputs[label]
+                    return label, pcfg, sd, batch, rows[label], seed
+
+                acc = case(ACCUMULATE[name]) if name in ACCUMULATE else None
+                ranks[name] = run_ranks(job_pp, sizes, MICRO, [case(c) for c in CASES[name]],
+                                        REPLICAS.get(name), acc, world=int(np.prod(sizes)))
         except Exception as e:  # raised in the test's thread below
             failed.append(e)
 
@@ -172,7 +186,7 @@ def runs():
     assert not thread.is_alive(), f"the rank runs took over {RANKS_TIMEOUT} s"
     if failed:
         raise failed[0]
-    return dict(jax=jax_ref, one=one, ranks=ranks)
+    return dict(jax=jax_ref, one=one, ranks=ranks, acc_one=acc_one)
 
 
 def _ranks(runs, mesh):
@@ -188,7 +202,7 @@ def test_forward_and_step_match_jax(runs, mesh, case):
     jfwd, jlosses, jgrads = runs["jax"][mesh, case]
     data = MESHES[mesh][0]
     assert np.abs(jfwd["pred_boxes"] - 0.5).max() > 1e-3  # boxes off their anchors
-    for results, (d, p, m) in ((r[0], r[1]) for r in _ranks(runs, mesh)):
+    for results, (d, p, m), *_ in _ranks(runs, mesh):
         logits, boxes, topk, losses, grads = results[case][:5]
         b = len(jfwd["pred_logits"]) // data
         rows = slice(d * b, (d + 1) * b)
@@ -231,7 +245,7 @@ def test_each_rank_runs_its_stage(runs, mesh):
     data, model, pipe = MESHES[mesh]
     chunk = ENC_LAYERS // pipe
     coords = []
-    for r, (results, (d, p, m), _) in enumerate(_ranks(runs, mesh)):
+    for r, (results, (d, p, m), *_) in enumerate(_ranks(runs, mesh)):
         assert r == (d * pipe + p) * model + m
         coords.append((d, p, m))
         own = list(range(p * chunk, (p + 1) * chunk))
@@ -239,8 +253,12 @@ def test_each_rank_runs_its_stage(runs, mesh):
         for case, res in results.items():
             calls, counts, step_counts = res[5:8]
             assert calls == own * MICRO, (case, r, calls)
-            assert counts == {"boundary": MICRO * neighbours, "pipe": 1}, (case, r, counts)
-            assert step_counts == {"boundary": 2 * MICRO * neighbours, "pipe": 2}, (case, r)
+            assert counts == {"boundary": MICRO * neighbours, "pipe": 1, "grads": 0}, (
+                case, r, counts)
+            # CAT trains its in-layer adapters, the ZiRa cases no encoder layer
+            stage_trained = int(case.startswith("cat"))
+            assert step_counts == {"boundary": 2 * MICRO * neighbours, "pipe": 2,
+                                   "grads": stage_trained}, (case, r, step_counts)
     assert sorted(coords) == [(d, p, m) for d in range(data) for p in range(pipe)
                               for m in range(model)]
 
@@ -253,10 +271,27 @@ def test_pipe_ranks_keep_one_copy_of_the_weights(runs, mesh):
     gradients summed, the rest averaged) every trainable weight is bitwise
     alike over it and every rank's `state_dict()` is the same."""
     digests = set()
-    for _, _, (differed, same, digest) in _ranks(runs, mesh):
+    for _, _, (differed, same, digest), _ in _ranks(runs, mesh):
         assert differed and same
         digests.add(digest)
     assert len(digests) == 1
+
+
+@pytest.mark.parametrize("mesh", list(ACCUMULATE))
+def test_accumulation_matches_one_process(runs, mesh):
+    """`batch_size_scale` 2 under the pipe axis: after the first call the
+    gradients a checkpoint holds, after the second the mean gradient the
+    update applies, on every rank against the port's one process at
+    PORT_TOL of their scale; a stage-owned adapter's gradient counts each
+    call once (the pipe sum is taken in the backward, not in the
+    optimizer's every call)."""
+    want_held, want_applied = runs["acc_one"][ACCUMULATE[mesh]]
+    assert any("adapter" in n and ".encoder.layers." in n for n in want_applied)
+    for _, coords, _, (held, applied) in _ranks(runs, mesh):
+        assert sorted(held) == sorted(want_held) and sorted(applied) == sorted(want_applied)
+        for got, want in ((held, want_held), (applied, want_applied)):
+            for n, g in got.items():
+                assert _err(g, want[n]) <= PORT_TOL, (coords, n, _err(g, want[n]))
 
 
 def _fake_mesh(**sizes):

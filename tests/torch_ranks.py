@@ -214,22 +214,21 @@ class SkewedOptimizer(poptim.Optimizer):
     (`axis`, the model axis unless set) before its step (rank m of the axis
     adds m * 1e-3 to each), as the card's unordered float atomics move
     them; `differed` records whether a replicated gradient then differed
-    over the axis (over the pipe axis an encoder layer's parameter is a
-    stage's own, not replicated)."""
+    over the axis (over the pipe axis every gradient: each rank holds whole
+    weights)."""
 
     differed = False
     axis = "model"
 
     def step(self):
-        from ziragroundingdino_torch.parallel import pp, tp
+        from ziragroundingdino_torch.parallel import tp
 
         group, size, m = pdist.axis(self.axis)
         for p in self.params.values():
             if p.grad is not None:
                 p.grad.add_(m * 1e-3)
-        rep = [p.grad.reshape(-1) for n, p in self.params.items()
-               if p.grad is not None and not tp.is_sharded(p)
-               and not (self.axis == "pipe" and pp.is_stage_param(n))]
+        rep = [p.grad.reshape(-1) for p in self.params.values()
+               if p.grad is not None and (self.axis == "pipe" or not tp.is_sharded(p))]
         flat = torch.cat(rep)
         gathered = pdist.gather_cat(flat[None], 0, group, size)
         self.differed |= not all(torch.equal(g, flat) for g in gathered)
@@ -323,13 +322,12 @@ class ReducedGrads(GradRecorder):
     (a tensor-parallel shard gathered)."""
 
     def step(self):
-        from ziragroundingdino_torch.parallel import pp, tp
+        from ziragroundingdino_torch.parallel import tp
 
         for p in self.params.values():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         tp.mean_replicated_grads_(self.params.values())
-        pp.reduce_pipe_grads_(self.params.items())
         out = super().step()
         self.grads = {n: self.params[n].tp.full_of(g) if tp.is_sharded(self.params[n]) else g
                       for n, g in self.grads.items()}
@@ -382,7 +380,7 @@ def pipe_run(model, pcfg, batch, assignments, seed=None, mesh=None, microbatches
     t = {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
     counts = []
     with ctx:
-        pp.COUNTS.update(boundary=0, pipe=0)
+        pp.COUNTS.update(dict.fromkeys(pp.COUNTS, 0))
         with torch.no_grad():
             out = model(t["pixels"], t["mask"], {k: t[k] for k in pstep.TEXT_KEYS})
         counts.append(dict(pp.COUNTS))
@@ -392,7 +390,7 @@ def pipe_run(model, pcfg, batch, assignments, seed=None, mesh=None, microbatches
         gen = None if seed is None else torch.Generator().manual_seed(seed)
         rows = torch.from_numpy(np.asarray(assignments)).long()
         orig, pcrit.match_batch = pcrit.match_batch, lambda *a, **k: rows
-        pp.COUNTS.update(boundary=0, pipe=0)
+        pp.COUNTS.update(dict.fromkeys(pp.COUNTS, 0))
         try:
             metrics = pstep.train_step(net, rec, t, gen)
         finally:
@@ -401,6 +399,46 @@ def pipe_run(model, pcfg, batch, assignments, seed=None, mesh=None, microbatches
     losses = {k: v.item() for k, v in metrics.items() if k != "grad_norm"}
     return (out["pred_logits"], out["pred_boxes"], out["topk_idx"], losses, rec.grads,
             eval_calls, counts[0], counts[1])
+
+
+def accumulate_run(model, pcfg, batch, assignments, mesh=None, microbatches=None):
+    """One accumulation of `train.optim.Optimizer(batch_size_scale=2)` (AdamW
+    at lr 1e-2): a call on each half of `batch` (numpy, this rank's), the
+    matcher pinned to the half's rows of `assignments`, under
+    `pipeline_parallel(mesh, microbatches)` where `mesh` is given (sharded
+    first under a model axis): (the gradients that a checkpoint taken
+    between the calls holds, those that the update applies), whole."""
+    import contextlib
+
+    from ziragroundingdino_torch.config import OptimizerConfig, ScheduleConfig
+    from ziragroundingdino_torch.parallel import pp, tp
+
+    poptim.set_trainable(model, poptim.trainable_patterns_for_cfg(pcfg),
+                         freeze_all=pcfg.freeze_all)
+    if mesh is not None:
+        tp.shard_model_(model, mesh)
+    opt = poptim.Optimizer(model, OptimizerConfig(lr=1e-2), ScheduleConfig(), batch_size_scale=2)
+    applied = {}
+    opt.adamw.register_step_pre_hook(lambda *_: applied.update(
+        (n, p.tp.full_of(p.grad) if tp.is_sharded(p) else p.grad.clone())
+        for n, p in opt.params.items()))
+    net = pstep.wrap_ddp(model) if mesh is not None and pstep.ddp_applies() else model
+    ctx = (pp.pipeline_parallel(mesh, microbatches) if mesh is not None
+           else contextlib.nullcontext())
+    orig = pcrit.match_batch
+    try:
+        with ctx:
+            for half in range(2):
+                local, rows = local_rows(batch, assignments, half, 2)
+                t = {k: torch.from_numpy(np.array(v)) for k, v in local.items()}
+                pinned = torch.from_numpy(rows).long()
+                pcrit.match_batch = lambda *a, **k: pinned
+                pstep.train_step(net, opt, t)
+                if half == 0:
+                    held = opt.state_dict()["accumulation"]["grads"]
+    finally:
+        pcrit.match_batch = orig
+    return held, applied
 
 
 def state_digest(model) -> str:
@@ -414,13 +452,15 @@ def state_digest(model) -> str:
     return digest.hexdigest()
 
 
-def job_pp(rank, sizes, microbatches, cases, replicas=None):
+def job_pp(rank, sizes, microbatches, cases, replicas=None, accumulate=None):
     """Each case's `pipe_run` on this data rank's slice of its global batch
     under `make_mesh(data, model, 1, pipe)` for `sizes` = (data, model,
     pipe), then, for the case labelled `replicas` where given, its
-    `replica_run` over the pipe axis and `state_digest`: ({label:
-    pipe_run's result}, this rank's (data, pipe, model) coordinates, the
-    replicas' result or None)."""
+    `replica_run` over the pipe axis and `state_digest`, and, for the case
+    `accumulate` where given (one data rank), its `accumulate_run`:
+    ({label: pipe_run's result}, this rank's (data, pipe, model)
+    coordinates, the replicas' result or None, the accumulation's or
+    None)."""
     from ziragroundingdino_torch.parallel import mesh as pmesh
 
     data, model_size, pipe = sizes
@@ -440,5 +480,11 @@ def job_pp(rank, sizes, microbatches, cases, replicas=None):
         local, rows = local_rows(batch, assignments, d, data)
         rep = replica_run(model, pcfg, local, [rows], mesh, axis="pipe",
                           microbatches=microbatches) + (state_digest(model),)
+    acc = None
+    if accumulate is not None:
+        _, pcfg, sd, batch, assignments, _ = accumulate
+        model = build_model(pcfg, device="cpu", dtype="float32")
+        model.load_state_dict(sd)
+        acc = accumulate_run(model, pcfg, batch, assignments, mesh, microbatches)
     coords = (d, mesh.axes["pipe"][2], mesh.axes["model"][2])
-    return out, coords, rep
+    return out, coords, rep, acc

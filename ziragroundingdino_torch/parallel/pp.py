@@ -30,11 +30,14 @@ is one stage and the schedule is written out:
     of the encoder get their gradient on every rank. Every rank issues
     every collective in one fixed order, forward and backward;
   * every rank keeps whole weights (JAX's `param_sharding` has no pipe
-    rule): a stage's parameters get their gradient on it alone and the
-    others' stay None, zero to the optimizer, and `reduce_pipe_grads_`
-    sums them over the pipe axis; a replicated trainable parameter takes
-    the mean there (the card's unordered MSDA atomics leave the ranks'
-    gradients a few bits apart);
+    rule): the node takes every encoder layer's trainable parameters on
+    every rank, a stage differentiates its own and puts zeros for the
+    others', and one all-reduce over the pipe line sums them before the
+    backward returns them, so that each backward adds its gradient once on
+    every rank (and DDP's hooks see the sum); a replicated trainable
+    parameter takes the mean over the pipe axis in the optimizer
+    (`parallel.tp.mean_replicated_grads_`: the card's unordered MSDA
+    atomics leave the ranks' gradients a few bits apart);
   * dropout: every rank draws every encoder layer's masks in the loop's
     order at the local batch's shape (so the generator ends where the loop
     leaves it), keeps its own stage's, and its layers take each
@@ -54,9 +57,8 @@ refused, as in JAX.
 from __future__ import annotations
 
 import contextlib
-import re
 from contextlib import contextmanager
-from typing import Iterable, List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as tdist
@@ -65,12 +67,10 @@ from ziragroundingdino_torch.parallel import dist, sp
 
 PIPE_AXIS = "pipe"
 
-# the broadcasts this process joined: between neighbouring stages
-# ("boundary") and over the whole pipe line ("pipe")
-COUNTS = {"boundary": 0, "pipe": 0}
-
-# the parameters of one encoder layer: a pipe stage's own
-STAGE_PARAM = re.compile(r"(^|\.)transformer\.encoder\.(layers|text_layers|fusion_layers)\.\d+\.")
+# the collectives this process joined: broadcasts between neighbouring
+# stages ("boundary") and over the whole pipe line ("pipe"), and the
+# all-reduces of the encoder layers' gradients over the pipe line ("grads")
+COUNTS = {"boundary": 0, "pipe": 0, "grads": 0}
 
 _STACK: list = []
 
@@ -230,12 +230,13 @@ class _Stage:
                     self.draws += draws
         self.kept = []
 
-    def params(self) -> List[torch.nn.Parameter]:
-        """The stage's trainable parameters."""
+    def params(self) -> List[Tuple[bool, torch.nn.Parameter]]:
+        """Every encoder layer's trainable parameters, in one order on every
+        rank, each with whether this stage runs its layer."""
         e = self.enhancer
         stacks = [m for m in (e.layers, e.text_layers, e.fusion_layers) if m is not None]
-        return [p for m in stacks for i in self.layers for p in m[i].parameters()
-                if p.requires_grad]
+        return [(i in self.layers, p) for m in stacks for i in range(len(m))
+                for p in m[i].parameters() if p.requires_grad]
 
     def _boundary(self, b: int, tensors, specs, forward: bool):
         group, lo, hi = self.mesh.boundaries[b]
@@ -298,11 +299,12 @@ class _Stage:
         return (self.bm * self.n_micro,) + tuple(spec[0][1:]), spec[1]
 
     def backward(self, d_src, d_text, d_al, needs: Tuple[bool, bool, bool]):
-        """The reverse schedule: ((d src, d pos, d text), the stage's
-        parameters' gradients), the first three None where `needs` (src,
-        pos, text) asks for no gradient."""
+        """The reverse schedule: ((d src, d pos, d text), every encoder
+        layer's parameters' gradients, summed over the pipe line), the first
+        three None where `needs` (src, pos, text) asks for no gradient."""
         p, last = self.stage, self.n_pipe - 1
-        params = self.params()
+        every = self.params()
+        params = [q for own, q in every if own]
         d_params: List[Optional[torch.Tensor]] = [None] * len(params)
         names = ["src", "text"] + (["pos"] if self.need_pos else [])
         spec = {"src": self.src_spec, "text": self.text_spec, "pos": self.src_spec}
@@ -351,15 +353,36 @@ class _Stage:
                              else None, [self._whole(spec[k]) for k in asked], self.device,
                              "pipe")
             out.update(zip(asked, got))
-        return (out["src"], out["pos"], out["text"]), d_params
+        return (out["src"], out["pos"], out["text"]), self._summed(every, d_params)
+
+    def _summed(self, every, d_own) -> List[torch.Tensor]:
+        """Every encoder layer's parameters' gradients summed over the pipe
+        line: this stage's from `d_own` (zeros where the graph left one
+        None), zeros for the other stages', one all-reduce per dtype."""
+        if not every:
+            return []
+        mine = iter(d_own)
+        local = []
+        for own, q in every:
+            g = next(mine) if own else None
+            local.append(torch.zeros_like(q) if g is None else g)
+        COUNTS["grads"] += 1
+        out: List[Optional[torch.Tensor]] = [None] * len(local)
+        for dtype in sorted({g.dtype for g in local}, key=str):
+            idx = [k for k, g in enumerate(local) if g.dtype == dtype]
+            flat = dist.reduced(torch.cat([local[k].reshape(-1) for k in idx]), self.group)
+            for k, v in zip(idx, flat.split([local[k].numel() for k in idx])):
+                out[k] = v.view_as(local[k])
+        return out
 
 
 class _GPipe(torch.autograd.Function):
     """The pipelined encoder as one autograd node: its inputs are src, pos,
     text, an anchor (a fresh leaf that makes the outputs ask for a
     gradient on every rank, so that every rank runs the backward's
-    collectives) and the stage's trainable parameters, whose gradients it
-    returns, so that DDP's hooks see them as the backward makes them."""
+    collectives) and every encoder layer's trainable parameters, whose
+    gradients it returns summed over the pipe line, so that DDP's hooks
+    see them as the backward makes them."""
 
     @staticmethod
     def forward(ctx, stage: _Stage, src, pos, text, anchor, *params):
@@ -404,28 +427,5 @@ def pipelined_enhancer(enhancer, src, pos, reference_points, spatial_shapes, key
         with torch.no_grad():
             return stage.forward(src, pos, text, keep=False)
     anchor = torch.zeros((), device=src.device, requires_grad=True)
-    return _GPipe.apply(stage, src, pos, text, anchor, *stage.params())
+    return _GPipe.apply(stage, src, pos, text, anchor, *(q for _, q in stage.params()))
 
-
-def is_stage_param(name: str) -> bool:
-    """Whether the parameter `name` belongs to one encoder layer, which one
-    pipe stage runs."""
-    return STAGE_PARAM.search(name) is not None
-
-
-@torch.no_grad()
-def reduce_pipe_grads_(named_params: Iterable[Tuple[str, torch.Tensor]]) -> None:
-    """Over the pipe axis, in place: an encoder layer's parameter's gradient
-    summed (its stage's; the others hold zeros), every other gradient
-    averaged (the ranks' copies of a replicated parameter take one
-    update), in one all-reduce per dtype. Call it after the gradients that
-    the backward left None are zero-filled. Nothing without a pipe axis."""
-    group, size, _ = dist.axis(PIPE_AXIS)
-    if size == 1:
-        return
-    items = [(n, p.grad) for n, p in named_params if p.grad is not None]
-    for dtype in sorted({g.dtype for _, g in items}, key=str):
-        same = [(n, g) for n, g in items if g.dtype == dtype]
-        flat = dist.reduced(torch.cat([g.reshape(-1) for _, g in same]), group)
-        for (n, g), v in zip(same, flat.split([g.numel() for _, g in same])):
-            g.copy_(v.view_as(g) if is_stage_param(n) else v.view_as(g) / size)

@@ -276,16 +276,22 @@ def is_sharded(p: torch.Tensor) -> bool:
 
 @torch.no_grad()
 def mean_replicated_grads_(params: Iterable[torch.Tensor]) -> None:
-    """The gradients of the replicated parameters among `params` (those that
-    are not a shard) set to their mean over the model axis, in place, in
-    one all-reduce per dtype; see the module doc. Nothing without a model
-    axis."""
-    group, size, _ = dist.axis("model")
-    if size == 1:
-        return
-    grads = [p.grad for p in params if p.grad is not None and not is_sharded(p)]
-    for dtype in sorted({g.dtype for g in grads}, key=str):
-        same = [g for g in grads if g.dtype == dtype]
-        flat = dist.reduced(torch.cat([g.reshape(-1) for g in same]), group) / size
-        for g, v in zip(same, flat.split([g.numel() for g in same])):
-            g.copy_(v.view_as(g))
+    """The ranks' copies of one parameter take one update: the gradients of
+    the replicated parameters among `params` (those that are not a shard)
+    set to their mean over the model axis (see the module doc), and every
+    gradient to its mean over the pipe axis (every pipe rank holds whole
+    weights; `parallel/pp.py` has already summed an encoder layer's), in
+    place, in one all-reduce per axis and dtype. A mean of copies that are
+    alike changes nothing, so calls between the updates of an accumulation
+    may repeat it. Nothing without a model or pipe axis."""
+    params = [p for p in params if p.grad is not None]
+    for axis, grads in (("model", [p.grad for p in params if not is_sharded(p)]),
+                        ("pipe", [p.grad for p in params])):
+        group, size, _ = dist.axis(axis)
+        if size == 1:
+            continue
+        for dtype in sorted({g.dtype for g in grads}, key=str):
+            same = [g for g in grads if g.dtype == dtype]
+            flat = dist.reduced(torch.cat([g.reshape(-1) for g in same]), group) / size
+            for g, v in zip(same, flat.split([g.numel() for g in same])):
+                g.copy_(v.view_as(g))

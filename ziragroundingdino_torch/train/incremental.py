@@ -32,7 +32,7 @@ import torch
 
 from ziragroundingdino_torch.models.groundingdino import GroundingDINO, TextEncoderOnly
 from ziragroundingdino_torch.models.zira import rep_merge, scale_reset_for_cfg
-from ziragroundingdino_torch.parallel import dist, pp, tp
+from ziragroundingdino_torch.parallel import dist, tp
 from ziragroundingdino_torch.text.tokenizer import TextBatch, WordPieceTokenizer, tokenize_captions
 from ziragroundingdino_torch.train.optim import ZIRA_TRAINABLE_PATTERNS, set_trainable
 from ziragroundingdino_torch.train.trainer import save_atomically
@@ -274,12 +274,9 @@ def run_replay_phase(state: IncrementalState, model: GroundingDINO,
                     p.grad = torch.zeros_like(p)
             # under sequence parallelism an image loss's gradients are the
             # seq ranks' shares (`parallel/sp.py`); the text loss's are equal;
-            # the model and pipe ranks' copies of a replicated weight take one
-            # update, a pipe stage's own weights their stage's gradient
+            # the model and pipe ranks' copies of a weight take one update
             dist.mean_over_ranks_([p.grad for p in params], "seq")
             tp.mean_replicated_grads_(params)
-            pp.reduce_pipe_grads_((n, p) for n, p in model.named_parameters()
-                                  if p.requires_grad)
             opt.step()
             opt.zero_grad(set_to_none=True)
         if (it + 1) % 20 == 0 or it == 0:

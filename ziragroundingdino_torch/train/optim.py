@@ -22,7 +22,7 @@ import torch
 from torch import nn
 
 from ziragroundingdino_torch.config import OptimizerConfig, ScheduleConfig
-from ziragroundingdino_torch.parallel import dist, pp, tp
+from ziragroundingdino_torch.parallel import dist, tp
 
 # the reference's 'unfreeze "adapter"-named params'; the port's parameter
 # names use the same vocabulary (rep_linear_adapter, input_proj_conv_adapter)
@@ -231,10 +231,8 @@ class Optimizer:
                 # without noisy gating) steps on a zero gradient, so that AdamW
                 # decays it and its moments as optax's does
                 p.grad = torch.zeros_like(p)
-        # the model and pipe ranks' copies of a replicated parameter take one
-        # update; a pipe stage's own parameters their stage's gradient
+        # the model and pipe ranks' copies of a parameter take one update
         tp.mean_replicated_grads_(self.params.values())
-        pp.reduce_pipe_grads_(self.params.items())
         grads = [p.grad for p in self.params.values()]
         sharded = [tp.is_sharded(p) for p in self.params.values()]
         self.mini_step += 1
