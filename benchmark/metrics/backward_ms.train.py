@@ -1,0 +1,10 @@
+"""backward_ms.train: stream milliseconds a step of the program's
+`step.backward` span (`backward()`, remat's recompute and MSDA's backward
+included), under each `step` span of the profiled slices
+(`ziragroundingdino_torch/train/step.py`); CUDA events on the step's stream."""
+
+from benchmark.lib.spans import ms_per_root
+
+
+def read(ctx):
+    return ms_per_root("step", "step.backward", stream=True)

@@ -6,7 +6,9 @@ a caption per image) through both predictors with `TinyPair`'s weights:
 boxes and scores at 1e-4, labels and label names equal. One JAX compile,
 shared by the module's fixture. Then the port's own routing (cache keys,
 oversized requests, boxes inside the original frame) and the forward's
-capture-safety: once warm, it makes no tensor from host data.
+capture-safety: once warm, it makes no tensor from host data. Last, a
+request that mixes a landscape and a portrait image, held to the JAX
+Predictor on the same padded canvas (a second JAX compile).
 """
 
 import numpy as np
@@ -118,3 +120,36 @@ def test_warm_forward_makes_no_tensor_from_host_data(tiny_pair, monkeypatch):
         np.testing.assert_array_equal(scores[i].numpy()[:len(w["scores"])], w["scores"])
         np.testing.assert_array_equal(boxes[i].numpy(), w["boxes"])
         np.testing.assert_array_equal(labels[i].numpy(), w["labels"])
+
+
+def test_request_mixing_orientations_serves(tiny_pair):
+    """A landscape and a portrait image whose buckets are transposes of
+    each other: the request pads to the largest height and the largest
+    width of the two buckets, as `data/loader.py::collate` pads a batch
+    (the bucket of the larger area, either one, would not hold the other
+    image), and answers both in their original frames. Held at 1e-4 to the
+    JAX Predictor given that padded shape as its one bucket: both pad the
+    same eval-size images onto the same 96x96 canvas."""
+    from ziragroundingdino_tpu.config import DataConfig
+    from ziragroundingdino_tpu.utils.predictor import Predictor as JaxPredictor
+
+    request = [["cat", "dog"], ["zebra"]]
+    dcfg = pc.DataConfig(test_short_side=64, max_size=96, shape_buckets=((64, 96), (96, 64)))
+    p = Predictor(tiny_pair.port, tiny_tokenizer(), dcfg, **BUCKETS)
+    images = _images()[:2]  # 64x96 and 96x64
+    out = p(images, request, score_threshold=0.0)
+    assert list(p._compiled) == [(2, (96, 96), 16, 2)]
+    jdcfg = DataConfig(test_short_side=64, max_size=96, shape_buckets=((96, 96),),
+                       num_workers=0)
+    jp = JaxPredictor(tiny_pair.jmodel, tiny_pair.variables(), tiny_tokenizer(), jdcfg,
+                      **BUCKETS)
+    want = jp(images, request, score_threshold=0.0)
+    for i, (img, r, w) in enumerate(zip(images, out, want)):
+        h, wd = img.shape[:2]
+        assert r["boxes"].shape == (BUCKETS["select_k"], 4)
+        assert np.all(r["boxes"][:, 0::2] <= wd) and np.all(r["boxes"][:, 1::2] <= h)
+        assert len(r["scores"]) == len(w["scores"])
+        assert_close(r["scores"], w["scores"], ATOL, what=f"scores {i}")
+        assert_close(r["boxes"], w["boxes"], ATOL, what=f"boxes {i}")
+        np.testing.assert_array_equal(r["labels"], np.asarray(w["labels"]))
+        assert r["label_names"] == w["label_names"]

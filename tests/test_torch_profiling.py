@@ -1,42 +1,22 @@
-"""The port's `utils/profiling.py` on the CPU: `SmoothedValue` and
-`MetricLogger` against the JAX package's classes on the same updates,
-`nan_guard` / `checkify_nans` on a forward that makes a NaN and on one that
-does not, `device_timer` recording into `results`, `trace` writing a
-Chrome trace."""
+"""The port's `utils/profiling.py` on the CPU: `nan_guard` /
+`checkify_nans` on a forward that makes a NaN and on one that does not,
+`device_timer` recording into `results`, `trace` writing a Chrome trace,
+and the spans: nothing recorded without a profiler, only a schedule's
+active steps recorded under one (their `record_function` ranges around the
+ops inside), and the tree of names, parents, ids and counts, a span closed
+by an exception kept, a span of another thread under the process's
+innermost open span."""
 
 import json
 import math
+import threading
 
-import numpy as np
 import pytest
 import torch
 from torch import nn
+from torch.profiler import ProfilerActivity, profile, schedule
 
 from ziragroundingdino_torch.utils import profiling
-
-
-def _updates():
-    rng = np.random.RandomState(0)
-    return [(float(v), int(n)) for v, n in zip(rng.randn(45), rng.randint(1, 4, 45))]
-
-
-def test_smoothed_value_and_metric_logger_match_jax():
-    from ziragroundingdino_tpu.utils import profiling as jprof
-
-    for window in (1, 7, 20):
-        got, want = profiling.SmoothedValue(window), jprof.SmoothedValue(window)
-        for v, n in _updates():
-            got.update(v, n)
-            want.update(v, n)
-            assert (got.avg, got.global_avg, got.count) == (want.avg, want.global_avg,
-                                                            want.count)
-    got, want = profiling.MetricLogger(delimiter=" | "), jprof.MetricLogger(delimiter=" | ")
-    for i, (v, _) in enumerate(_updates()):
-        kw = {"loss": v, "lr": 1e-4 * i} if i % 3 else {"loss": torch.tensor(v)}
-        got.update(**kw)
-        want.update(**{k: float(x) for k, x in kw.items()})
-    assert str(got) == str(want)
-    assert list(got.log_every(range(5), 2, "it")) == list(want.log_every(range(5), 2, "it"))
 
 
 class _Net(nn.Module):
@@ -97,3 +77,71 @@ def test_device_timer_records_into_results(tmp_path):
         torch.ones(8) + 1
     events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
     assert any("aten::add" in e.get("name", "") for e in events)
+
+
+def test_no_span_is_recorded_without_a_profiler():
+    profiling.clear_spans()
+    with profiling.span("outside", images=1) as s:
+        torch.ones(4) + 1
+        s.count(pixels_real=3)
+    assert not s.recording
+    assert profiling.spans() == []
+
+
+def test_spans_are_recorded_in_the_active_steps_alone():
+    profiling.clear_spans()
+    traces = []
+    with profile(activities=[ProfilerActivity.CPU], schedule=schedule(wait=2, warmup=1, active=2),
+                 on_trace_ready=lambda p: traces.append(p.events())) as prof:
+        for i in range(7):
+            with profiling.span(f"step{i}"):
+                torch.ones(4) + i
+            prof.step()
+    assert [r.name for r in profiling.spans()] == ["step3", "step4"]
+    (events,) = traces
+    for i in (3, 4):
+        (rng,) = [e for e in events if e.name == f"step{i}"]
+        inside = [e for e in events if e.name == "aten::add"
+                  and rng.time_range.start <= e.time_range.start
+                  and e.time_range.end <= rng.time_range.end]
+        assert len(inside) == 1
+    assert {e.name for e in events} >= {"step3", "step4"}
+    assert not {f"step{i}" for i in (0, 1, 2, 5, 6)} & {e.name for e in events}
+
+
+def test_span_tree_ids_counts_and_exceptions():
+    profiling.clear_spans()
+    with profile(activities=[ProfilerActivity.CPU]):
+        with profiling.span("a", images=2) as a:
+            assert a.recording
+            with profiling.span("b"):
+                with profiling.span("c"):
+                    pass
+            a.count(pixels_real=10)
+
+            def other():
+                with profiling.span("thread"):
+                    pass
+
+            # a thread's span: under the process's innermost open span
+            t = threading.Thread(target=other)
+            t.start()
+            t.join(timeout=10)
+            assert not t.is_alive()
+        with pytest.raises(ValueError):
+            with profiling.span("e"):
+                with profiling.span("f"):
+                    raise ValueError("stop")
+    got = {r.name: r for r in profiling.spans()}
+    assert list(got) == ["c", "b", "thread", "a", "f", "e"]  # in the order they closed
+    a, b, c, th, e, f = (got[k] for k in "a b c thread e f".split())
+    assert a.parent is None and e.parent is None and a.id != e.id
+    assert (b.parent, c.parent, th.parent, f.parent) == (a.seq, b.seq, a.seq, e.seq)
+    assert b.id == c.id == th.id == a.id and f.id == e.id
+    assert len({r.seq for r in got.values()}) == 6
+    assert a.counts == {"images": 2, "pixels_real": 10} and b.counts == {}
+    assert e.error and f.error and not (a.error or b.error or c.error)
+    assert a.start_ns <= b.start_ns <= c.start_ns <= c.end_ns <= b.end_ns <= a.end_ns
+    assert all(r.device_ms is None and r.ms == r.host_ms >= 0 for r in got.values())
+    profiling.clear_spans()
+    assert profiling.spans() == []

@@ -3,7 +3,8 @@
 * a run cut after a mid-task checkpoint and resumed from it ends bitwise
   where an uninterrupted run ends (weights, AdamW, schedule, EMA), with
   dropout on;
-* `Optimizer.state_dict` round trip; `fast_dev_run`;
+* `Optimizer.state_dict` round trip; `fast_dev_run`; `metrics.jsonl`'s
+  `step_time` ending on a synchronise of the device at each log;
 * a mini ODinW run through the driver's `main()` on two synthetic tasks:
   the checkpoint's prompt memory in the chain, every merge's algebra, the
   report; a second call restores both tasks from `state_final.pt` and
@@ -15,6 +16,7 @@ import dataclasses
 import io
 import json
 import os
+import time
 
 import numpy as np
 import pytest
@@ -35,6 +37,7 @@ from ziragroundingdino_torch.train.trainer import (
     latest_checkpoint,
     restore_checkpoint,
 )
+from ziragroundingdino_torch.utils import profiling
 
 DATA = dict(train_short_sides=(64, 96), max_size=160, test_short_side=96,
             shape_buckets=((96, 128), (128, 160), (160, 224)), max_boxes=10, num_workers=0)
@@ -154,6 +157,40 @@ def test_fast_dev_run_stops_at_20_iterations(tmp_path):
     assert calls == list(range(20))
     assert checkpoint_step(latest_checkpoint(str(tmp_path / "ckpt"))) == 20
     assert len((tmp_path / "metrics.jsonl").read_text().splitlines()) == 4
+
+
+def test_step_time_counts_the_device_at_each_log(tmp_path, monkeypatch):
+    """The trainer synchronises the device once at each log boundary,
+    inside `step_time`: a period's `step_time + data_time` is its wall time
+    from its first batch's fetch to the end of that synchronise, which here
+    stands for the device finishing the period's queued work."""
+    marks = {"fetch": [], "synced": []}
+
+    def synchronize(device=None):
+        time.sleep(0.03)
+        marks["synced"].append(time.perf_counter())
+
+    monkeypatch.setattr(profiling, "synchronize", synchronize)
+
+    def step_fn(model, optimizer, batch, generator):
+        time.sleep(0.01)
+        return {"total_loss": torch.tensor(1.0)}
+
+    def batches():
+        while True:
+            marks["fetch"].append(time.perf_counter())
+            time.sleep(0.005)
+            yield {"x": np.asarray(0), "real_count": np.asarray(1)}
+
+    m = _Tiny()
+    cfg = TrainConfig(output_dir=str(tmp_path), max_iter=6, checkpoint_period=1000, log_period=3)
+    Trainer(m, optim.Optimizer(m), batches(), cfg, step_fn=step_fn).train()
+    lines = [json.loads(x) for x in (tmp_path / "metrics.jsonl").read_text().splitlines()]
+    assert [x["iteration"] for x in lines] == [3, 6] and len(marks["synced"]) == 2
+    for k, line in enumerate(lines):
+        wall = marks["synced"][k] - marks["fetch"][3 * k]
+        assert line["step_time"] >= 3 * 0.01 + 0.03 and line["data_time"] >= 3 * 0.005
+        assert line["step_time"] + line["data_time"] == pytest.approx(wall, rel=0.05)
 
 
 TINY_MODEL = {

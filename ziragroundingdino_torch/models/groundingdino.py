@@ -78,6 +78,7 @@ from ziragroundingdino_torch.models.zira import (
     ZeroConvBN,
 )
 from ziragroundingdino_torch.ops.box_ops import inverse_sigmoid
+from ziragroundingdino_torch.utils import profiling
 
 # the reparameterizable family (`groundingdino.py:48-53` of the JAX package)
 ZIRA_MODELNAMES = (
@@ -306,8 +307,10 @@ class GroundingDINO(nn.Module):
             pixels = ((pixels.float() - mean) / std).masked_fill(~mask[..., None], 0.0)
 
         # ---- text path
-        encoded_text, loss_linear = encode_text(self.bert, self.feat_map, self.lang_adapter,
-                                                text, train, generator, cfg.sub_sentence_present)
+        with profiling.span("model.text"):
+            encoded_text, loss_linear = encode_text(self.bert, self.feat_map, self.lang_adapter,
+                                                    text, train, generator,
+                                                    cfg.sub_sentence_present)
         zero = torch.zeros((), dtype=torch.float32, device=pixels.device)
         if prompt_replace_values is not None and prompt_replace_mask is not None:
             # prompt-memory injection: learned classes' token features
@@ -322,7 +325,8 @@ class GroundingDINO(nn.Module):
         }
 
         # ---- image path
-        feats = self.backbone[0](pixels, mask, generator)
+        with profiling.span("model.backbone"):
+            feats = self.backbone[0](pixels, mask, generator)
         srcs, masks_lvl, poss = [], [], []
         loss_conv = zero
         for lvl in range(cfg.num_feature_levels):
@@ -379,9 +383,12 @@ class GroundingDINO(nn.Module):
         # refines the references it was given, refs[i]
         hs, refs = tr["hidden_states"], tr["references"]
         layers = range(len(hs)) if train else (len(hs) - 1,)
-        boxes = [torch.sigmoid(self.bbox_embed[i](hs[i].float()) + inverse_sigmoid(refs[i]))
-                 for i in layers]
-        logits = [class_embed(hs[i], text_dict) for i in layers]
+        with profiling.span("model.heads"):
+            boxes = [torch.sigmoid(self.bbox_embed[i](hs[i].float()) + inverse_sigmoid(refs[i]))
+                     for i in layers]
+            logits = [class_embed(hs[i], text_dict) for i in layers]
+            interm_logits = (enc_class_embed(tr["hs_enc"], text_dict) if train and cfg.aux_loss
+                             else None)
         out = {
             "pred_logits": logits[-1],  # [B, Q, max_text_len] f32
             "pred_boxes": boxes[-1],
@@ -393,8 +400,7 @@ class GroundingDINO(nn.Module):
         if cfg.aux_loss:
             out["aux_outputs"] = [{"pred_logits": c, "pred_boxes": b}
                                   for c, b in zip(logits[:-1], boxes[:-1])]
-            out["interm_outputs"] = {"pred_logits": enc_class_embed(tr["hs_enc"], text_dict),
-                                     "pred_boxes": tr["ref_enc"]}
+            out["interm_outputs"] = {"pred_logits": interm_logits, "pred_boxes": tr["ref_enc"]}
         out["adapter_losses"] = {
             "loss_linear_adapter": loss_linear,
             "loss_conv_adapter": loss_conv,

@@ -49,6 +49,7 @@ from ziragroundingdino_torch.models.remat import checkpoint
 from ziragroundingdino_torch.ops.box_ops import inverse_sigmoid
 from ziragroundingdino_torch.ops.msda import ms_deform_attn
 from ziragroundingdino_torch.parallel import pp, sp
+from ziragroundingdino_torch.utils import profiling
 
 SpatialShapes = Tuple[Tuple[int, int], ...]
 
@@ -267,6 +268,16 @@ def select_topk(scores: torch.Tensor, k: int) -> torch.Tensor:
     return order.repeat(1, reps)[:, :k]
 
 
+def _in_span(name: str, fn):
+    """`fn`, run inside `profiling.span(name)`."""
+
+    def run(*args):
+        with profiling.span(name):
+            return fn(*args)
+
+    return run
+
+
 class FeatureEnhancer(nn.Module):
     """The encoder stack: per layer fusion -> text layer -> deformable layer
     (`transformer_for_adapter.py:563-661`), the first two where the config
@@ -288,6 +299,10 @@ class FeatureEnhancer(nn.Module):
                              cfg.nheads // 2, compute_dtype=compute_dtype,
                              dropout=cfg.fusion_dropout, drop_path=cfg.fusion_droppath)
             for _ in range(n)) if cfg.use_fusion_layer else None
+        # `profiling.span` names of layer i's fusion, text and deformable
+        # layers (inside remat's checkpoint: a recompute is a span too)
+        self.span_names = [(f"encoder.fusion.{i}", f"encoder.text.{i}", f"encoder.deform.{i}")
+                           for i in range(n)]
 
     def layer_step(self, i, src, text, pos, reference_points, spatial_shapes, key_padding_mask,
                    text_token_mask, text_self_attention_masks, pos_text, generator=None,
@@ -297,14 +312,17 @@ class FeatureEnhancer(nn.Module):
         layer's adapter loss). The sequential loop and a pipeline stage
         (`parallel/pp.py`) both run it."""
         cfg = self.cfg
+        fusion_name, text_name, deform_name = self.span_names[i]
         if self.fusion_layers is not None:
             args = (src, text, key_padding_mask, text_token_mask, generator, shard)
-            src, text = (checkpoint(self.fusion_layers[i], *args, generator=generator)
-                         if cfg.use_checkpoint else self.fusion_layers[i](*args))
+            fusion = _in_span(fusion_name, self.fusion_layers[i])
+            src, text = (checkpoint(fusion, *args, generator=generator)
+                         if cfg.use_checkpoint else fusion(*args))
         if self.text_layers is not None:
-            text = self.text_layers[i](text, text_self_attention_masks, pos_text, generator)
+            with profiling.span(text_name):
+                text = self.text_layers[i](text, text_self_attention_masks, pos_text, generator)
         args = (src, pos, reference_points, spatial_shapes, key_padding_mask, shard)
-        layer = self.layers[i]
+        layer = _in_span(deform_name, self.layers[i])
         src, loss = checkpoint(layer, *args) if cfg.use_transformer_ckpt else layer(*args)
         return src, text, loss
 
@@ -401,6 +419,7 @@ class CrossModalityDecoder(nn.Module):
         e = cfg.hidden_dim
         self.layers = nn.ModuleList(DeformableDecoderLayer(cfg, compute_dtype)
                                     for _ in range(cfg.dec_layers))
+        self.span_names = [f"decoder.layer.{i}" for i in range(cfg.dec_layers)]
         self.norm = LayerNorm(e)
         self.ref_point_head = MLP(2 * e, e, e, 2, compute_dtype=compute_dtype)
         # the parent model's shared heads (`bbox_embed` is read here)
@@ -416,19 +435,20 @@ class CrossModalityDecoder(nn.Module):
         ref_points = [reference_points]
         adapter_loss = zero_loss(output)
         for i, layer in enumerate(self.layers):
-            ref_input = (reference_points[:, :, None]
-                         * torch.cat([valid_ratios, valid_ratios], -1)[:, None])  # [B, Q, L, 4]
-            query_sine = gen_sineembed_for_position(ref_input[:, :, 0, :],
-                                                    num_feats=cfg.hidden_dim // 2)
-            query_pos = self.ref_point_head(query_sine.to(self.compute_dtype or output.dtype))
-            output, loss = layer(output, query_pos, ref_input, memory, memory_mask,
-                                 spatial_shapes, text, text_token_mask, generator=generator)
-            adapter_loss = adapter_loss + loss
-            delta = self.bbox_embed[i](output.float()).float()
-            new_ref = torch.sigmoid(delta + inverse_sigmoid(reference_points))
-            reference_points = new_ref.detach()
-            ref_points.append(new_ref)
-            intermediate.append(self.norm(output))
+            with profiling.span(self.span_names[i]):
+                ref_input = (reference_points[:, :, None]
+                             * torch.cat([valid_ratios, valid_ratios], -1)[:, None])  # [B,Q,L,4]
+                query_sine = gen_sineembed_for_position(ref_input[:, :, 0, :],
+                                                        num_feats=cfg.hidden_dim // 2)
+                query_pos = self.ref_point_head(query_sine.to(self.compute_dtype or output.dtype))
+                output, loss = layer(output, query_pos, ref_input, memory, memory_mask,
+                                     spatial_shapes, text, text_token_mask, generator=generator)
+                adapter_loss = adapter_loss + loss
+                delta = self.bbox_embed[i](output.float()).float()
+                new_ref = torch.sigmoid(delta + inverse_sigmoid(reference_points))
+                reference_points = new_ref.detach()
+                ref_points.append(new_ref)
+                intermediate.append(self.norm(output))
         return intermediate, ref_points, adapter_loss
 
 

@@ -30,6 +30,7 @@ from ziragroundingdino_torch.parallel import dist
 from ziragroundingdino_torch.text.masks import recover_to_cls_logits
 from ziragroundingdino_torch.train.criterion import set_criterion, weighted_total
 from ziragroundingdino_torch.train.optim import Optimizer
+from ziragroundingdino_torch.utils import profiling
 
 TEXT_KEYS = ("input_ids", "text_token_mask", "position_ids", "text_self_attention_masks")
 
@@ -49,8 +50,16 @@ def compute_losses(model: GroundingDINO, batch: Dict[str, torch.Tensor],
     """(total loss, {name: loss}) of one batch, the model in train mode;
     `matcher_impl` as `train.matcher.match_batch`'s `impl`."""
     cfg = model.cfg
-    out = model(batch["pixels"], batch["mask"], {k: batch[k] for k in TEXT_KEYS}, train=True,
-                generator=generator)
+    with profiling.span("step.forward"):
+        out = model(batch["pixels"], batch["mask"], {k: batch[k] for k in TEXT_KEYS},
+                    train=True, generator=generator)
+    with profiling.span("step.criterion"):
+        return _criterion(cfg, out, batch, matcher_impl)
+
+
+def _criterion(cfg, out, batch, matcher_impl):
+    """`compute_losses` after the forward: the set criterion on per-category
+    logits and the ZiRa losses."""
     c2t = batch["cate_to_token_mask"]
 
     def to_cls(o):
@@ -145,17 +154,23 @@ def train_step(model: Union[GroundingDINO, DistributedDataParallel], optimizer: 
     the global batch, the backward averages the gradients over the ranks
     (but on the calls of an accumulation before its last, which run under
     `no_sync()`), and the losses returned are the global batch's."""
-    if isinstance(model, DistributedDataParallel):
-        sync = contextlib.nullcontext() if optimizer.will_update() else model.no_sync()
-        with sync:
-            total, losses = model(batch, generator)
-            if total.requires_grad:
-                total.backward()
-        losses = dist.mean_over_ranks(losses)
-    else:
-        total, losses = compute_losses(model, batch, generator, matcher_impl)
-        if total.requires_grad:
-            total.backward()
-    metrics = {k: v.detach() for k, v in losses.items()}
-    metrics["grad_norm"] = optimizer.step()
+    with profiling.span("step"):
+        if isinstance(model, DistributedDataParallel):
+            sync = contextlib.nullcontext() if optimizer.will_update() else model.no_sync()
+            with sync:
+                total, losses = model(batch, generator)
+                _backward(total)
+            losses = dist.mean_over_ranks(losses)
+        else:
+            total, losses = compute_losses(model, batch, generator, matcher_impl)
+            _backward(total)
+        metrics = {k: v.detach() for k, v in losses.items()}
+        with profiling.span("step.optimizer"):
+            metrics["grad_norm"] = optimizer.step()
     return metrics
+
+
+def _backward(total: torch.Tensor) -> None:
+    if total.requires_grad:
+        with profiling.span("step.backward"):
+            total.backward()

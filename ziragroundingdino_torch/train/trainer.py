@@ -15,6 +15,10 @@ generator on the model's device, seeded from (`cfg.seed`, `it`) (the JAX
 package's `fold_in(rng, it)`), so a run resumed at `it` draws what an
 uninterrupted run draws there without saving a generator's state.
 
+Timing in `metrics.jsonl`, per log period: `data_time` is the host's wait
+on the loader; `step_time` the steps' time, the device synchronised once
+at the log boundary so that it counts the device's work, not the enqueue.
+
 Under data parallelism (a process group, `parallel.dist`) each rank runs
 the loop on its slice of every global batch through `train.step.wrap_ddp`;
 data rank r > 0 draws its own dropout (seeded from (`cfg.seed`, `it`, r));
@@ -44,6 +48,7 @@ from ziragroundingdino_torch.models.groundingdino import GroundingDINO
 from ziragroundingdino_torch.parallel import dist
 from ziragroundingdino_torch.train.optim import Optimizer
 from ziragroundingdino_torch.train.step import ddp_applies, train_step, wrap_ddp
+from ziragroundingdino_torch.utils import profiling
 from ziragroundingdino_torch.utils.events import CommonMetricPrinter
 
 logger = logging.getLogger("ziragroundingdino_torch")
@@ -177,9 +182,12 @@ class Trainer:
             t1 = time.perf_counter()
             metrics = self.step_fn(self.net, self.optimizer, batch,
                                    iteration_generator(cfg.seed, it, self.device, rank))
+            log = (it + 1) % cfg.log_period == 0 or it + 1 == max_iter
+            if log:  # the period's steps end on the device, not at their enqueue
+                profiling.synchronize(self.device)
             t_data += t1 - t0
             t_step += time.perf_counter() - t1
-            if (it + 1) % cfg.log_period == 0 or it + 1 == max_iter:
+            if log:
                 line = {k: float(v) for k, v in metrics.items()}
                 line["data_time"] = t_data
                 line["step_time"] = t_step

@@ -41,6 +41,7 @@ from ziragroundingdino_torch.eval.postprocess import scale_to_original, top_k_de
 from ziragroundingdino_torch.models.groundingdino import GroundingDINO
 from ziragroundingdino_torch.text.masks import recover_to_cls_logits
 from ziragroundingdino_torch.text.tokenizer import WordPieceTokenizer, tokenize_captions
+from ziragroundingdino_torch.utils import profiling
 
 logger = logging.getLogger("ziragroundingdino_torch")
 
@@ -111,6 +112,13 @@ class Predictor:
         if prog is not None:
             return prog
         logger.info("predictor: preparing bucket %s", key)
+        with profiling.span("predictor.capture", stream=False):
+            prog = self._prepare(host)
+        self._compiled[key] = prog
+        return prog
+
+    def _prepare(self, host: Dict[str, np.ndarray]) -> _Program:
+        """A new key's buffers and, on the card, its warm-up and capture."""
         pin = self.device.type == "cuda"
         staging = {k: torch.from_numpy(np.ascontiguousarray(v)).clone() for k, v in host.items()}
         if pin:
@@ -118,7 +126,6 @@ class Predictor:
         inputs = {k: v.to(self.device) for k, v in staging.items()}
         prog = _Program(inputs=inputs, staging=staging)
         if not pin:
-            self._compiled[key] = prog
             return prog
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
@@ -132,7 +139,6 @@ class Predictor:
         prog.graph = graph
         prog.results = tuple(torch.empty(o.shape, dtype=o.dtype).pin_memory()
                              for o in prog.outputs)
-        self._compiled[key] = prog
         return prog
 
     def _pad_batch(self, n: int) -> int:
@@ -162,31 +168,52 @@ class Predictor:
                                 score_threshold))
             return out
         bsz = self._pad_batch(n)
+        with profiling.span("predictor.request", stream=False,
+                            images=n, batch=bsz) as req:
+            return self._request(images, class_lists, score_threshold, bsz, req)
 
-        samples = []
-        for img in images:
-            s = Sample(image=np.asarray(img), boxes=np.zeros((0, 4), np.float32),
-                       labels=np.zeros((0,), np.int64), orig_size=img.shape[:2])
-            samples.append(eval_transform(s, self.dcfg))
-        bucket = max((pick_bucket(s.image.shape[0], s.image.shape[1], self.dcfg.shape_buckets)
-                      for s in samples), key=lambda b: b[0] * b[1])
-        # uint8 pixels, normalised on the device (the model's uint8 path)
-        pixels = np.zeros((bsz, *bucket, 3), np.uint8)
-        mask = np.zeros((bsz, *bucket), bool)
-        orig = np.zeros((bsz, 2), np.int32)
-        for i, s in enumerate(samples):
-            pixels[i], mask[i] = pad_to_bucket(s.image.astype(np.uint8), bucket)
-            orig[i] = s.orig_size
-        for i in range(n, bsz):  # repeat-pad
-            pixels[i], mask[i], orig[i] = pixels[n - 1], mask[n - 1], orig[n - 1]
+    def _request(self, images, class_lists, score_threshold, bsz, req
+                 ) -> List[Dict[str, np.ndarray]]:
+        """One device call: `images` (at most the largest batch bucket) in
+        batch bucket `bsz`; `req` is the request's span."""
+        n = len(images)
+        with profiling.span("predictor.resize", stream=False):
+            samples = []
+            for img in images:
+                s = Sample(image=np.asarray(img), boxes=np.zeros((0, 4), np.float32),
+                           labels=np.zeros((0,), np.int64), orig_size=img.shape[:2])
+                samples.append(eval_transform(s, self.dcfg))
+        with profiling.span("predictor.pad", stream=False):
+            # the largest height and width of the images' buckets, as
+            # `data/loader.py::collate` pads a batch: a landscape and a
+            # portrait image share one padded shape
+            buckets = [pick_bucket(s.image.shape[0], s.image.shape[1], self.dcfg.shape_buckets)
+                       for s in samples]
+            bucket = (max(b[0] for b in buckets), max(b[1] for b in buckets))
+            # uint8 pixels, normalised on the device (the model's uint8 path)
+            pixels = np.zeros((bsz, *bucket, 3), np.uint8)
+            mask = np.zeros((bsz, *bucket), bool)
+            orig = np.zeros((bsz, 2), np.int32)
+            for i, s in enumerate(samples):
+                pixels[i], mask[i] = pad_to_bucket(s.image.astype(np.uint8), bucket)
+                orig[i] = s.orig_size
+            for i in range(n, bsz):  # repeat-pad
+                pixels[i], mask[i], orig[i] = pixels[n - 1], mask[n - 1], orig[n - 1]
 
-        captions = [".".join(c.lower().strip() for c in cl) + "." for cl in class_lists]
-        captions += [captions[-1]] * (bsz - n)
-        need_c = max(max(len(cl) for cl in class_lists), 1)
-        max_c = next((b for b in self.category_buckets if b >= need_c),
-                     self.category_buckets[-1])
-        tb = tokenize_captions(self.tokenizer, captions, max_text_len=self.text_len_buckets[-1],
-                               max_categories=max_c, text_len_buckets=self.text_len_buckets)
+        with profiling.span("predictor.tokenize", stream=False):
+            captions = [".".join(c.lower().strip() for c in cl) + "." for cl in class_lists]
+            captions += [captions[-1]] * (bsz - n)
+            need_c = max(max(len(cl) for cl in class_lists), 1)
+            max_c = next((b for b in self.category_buckets if b >= need_c),
+                         self.category_buckets[-1])
+            tb = tokenize_captions(self.tokenizer, captions,
+                                   max_text_len=self.text_len_buckets[-1],
+                                   max_categories=max_c, text_len_buckets=self.text_len_buckets)
+        if req.recording:
+            req.count(pixels_real=sum(s.image.shape[0] * s.image.shape[1] for s in samples),
+                      pixels_padded=bsz * bucket[0] * bucket[1],
+                      tokens_real=int(tb.text_token_mask[:n].sum()),
+                      tokens_padded=bsz * tb.input_ids.shape[1])
 
         key = (bsz, bucket, tb.input_ids.shape[1], max_c)
         host = dict(tb.asdict(), pixels=pixels, mask=mask,
@@ -194,28 +221,33 @@ class Predictor:
         with torch.inference_mode():
             prog = self._program(key, host)
             if prog.graph is None:
-                for k, v in host.items():
-                    prog.inputs[k].copy_(torch.from_numpy(np.ascontiguousarray(v)))
-                scores, labels, boxes = (t.numpy() for t in self._run(prog))
+                with profiling.span("predictor.stage", stream=False):
+                    for k, v in host.items():
+                        prog.inputs[k].copy_(torch.from_numpy(np.ascontiguousarray(v)))
+                with profiling.span("predictor.run"):
+                    scores, labels, boxes = (t.numpy() for t in self._run(prog))
             else:
-                for k, v in host.items():
-                    prog.staging[k].numpy()[...] = v
-                    prog.inputs[k].copy_(prog.staging[k], non_blocking=True)
-                prog.graph.replay()
-                for host_out, out in zip(prog.results, prog.outputs):
-                    host_out.copy_(out, non_blocking=True)
-                torch.cuda.current_stream(self.device).synchronize()
-                scores, labels, boxes = (t.numpy() for t in prog.results)
+                with profiling.span("predictor.stage", stream=False):
+                    for k, v in host.items():
+                        prog.staging[k].numpy()[...] = v
+                        prog.inputs[k].copy_(prog.staging[k], non_blocking=True)
+                with profiling.span("predictor.run"):
+                    prog.graph.replay()
+                    for host_out, out in zip(prog.results, prog.outputs):
+                        host_out.copy_(out, non_blocking=True)
+                    torch.cuda.current_stream(self.device).synchronize()
+                    scores, labels, boxes = (t.numpy() for t in prog.results)
 
-        results = []
-        for i in range(n):
-            keep = scores[i] > score_threshold
-            names = list(class_lists[i])
-            results.append({
-                "boxes": boxes[i][keep],
-                "scores": scores[i][keep],
-                "labels": labels[i][keep],
-                "label_names": [names[j] if j < len(names) else f"cls{j}"
-                                for j in labels[i][keep]],
-            })
+        with profiling.span("predictor.results", stream=False):
+            results = []
+            for i in range(n):
+                keep = scores[i] > score_threshold
+                names = list(class_lists[i])
+                results.append({
+                    "boxes": boxes[i][keep],
+                    "scores": scores[i][keep],
+                    "labels": labels[i][keep],
+                    "label_names": [names[j] if j < len(names) else f"cls{j}"
+                                    for j in labels[i][keep]],
+                })
         return results

@@ -1,13 +1,15 @@
 """Profiling and debugging tools, the port of the JAX package's
 `utils/profiling.py` (reference: wall-clock timers with
 `torch.cuda.synchronize` in the eval loop, `evaluation/evaluator.py:
-109-151`; `util/misc.py`'s `SmoothedValue` and `MetricLogger`):
+109-151`):
   * `device_timer`: wall time of a block, the device synchronised at its end;
   * `trace`: a `torch.profiler` trace of the block, written as a Chrome
     trace into `log_dir`;
+  * `span` / `spans` / `clear_spans`: named spans inside the program (the
+    Predictor's host path, the train step's phases, the model's layers),
+    recorded while a `torch.profiler` records and read back afterwards;
   * `nan_guard` / `checkify_nans`: raise, or return an error object, when a
-    module of a model produces a value that is not finite;
-  * `SmoothedValue`, `MetricLogger`: windowed averages of training metrics.
+    module of a model produces a value that is not finite.
 
 The JAX package's `enable_compilation_cache` is XLA's persistent cache of
 compiled programs and has no counterpart here: the port's cache of built
@@ -18,19 +20,25 @@ compiled once per content hash.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import logging
 import os
+import threading
 import time
 from collections import deque
-from typing import Callable, Dict, Iterable, List, Optional, Union
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional, Union
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 from torch import nn
 
 logger = logging.getLogger("ziragroundingdino_torch")
 
 
-def _synchronize(device: Optional[Union[str, torch.device]]) -> None:
+def synchronize(device: Optional[Union[str, torch.device]] = None) -> None:
+    """Wait for `device`'s work (None: the current card, if any); nothing
+    on the CPU."""
     device = torch.device(device) if device is not None else None
     if device is None:
         if torch.cuda.is_available():
@@ -47,7 +55,7 @@ def device_timer(name: str, results: Optional[Dict[str, float]] = None,
     the device's work counts. Added to `results[name]` when given."""
     t0 = time.perf_counter()
     yield
-    _synchronize(device)
+    synchronize(device)
     dt = time.perf_counter() - t0
     if results is not None:
         results[name] = results.get(name, 0.0) + dt
@@ -73,6 +81,158 @@ def trace(log_dir: str = "profile"):
         path = os.path.join(log_dir, "trace.json")
         prof.export_chrome_trace(path)
         logger.info("profile written to %s", path)
+
+
+SPAN_LIMIT = 200_000  # finished spans kept; past it the oldest go first
+
+
+@dataclass
+class SpanRecord:
+    """One finished span. `seq` numbers every span of the process; `parent`
+    is the `seq` of the span that was open around it (None for a root);
+    `id` is its root's: the request or the step it belongs to. `start_ns` /
+    `end_ns` are `time.perf_counter_ns()`. `device_ms` is the stream time
+    between its two timing events (None where it recorded none: on the
+    CPU, or begun while its stream captured a graph). `error`: closed by
+    an exception."""
+
+    name: str
+    seq: int
+    parent: Optional[int]
+    id: int
+    start_ns: int
+    end_ns: int = 0
+    counts: Dict[str, float] = field(default_factory=dict)
+    error: bool = False
+    device_ms: Optional[float] = None
+    events: Optional[tuple] = field(default=None, repr=False)
+
+    @property
+    def host_ms(self) -> float:
+        return (self.end_ns - self.start_ns) * 1e-6
+
+    @property
+    def ms(self) -> float:
+        """Stream milliseconds where the span has them, else host ones."""
+        return self.host_ms if self.device_ms is None else self.device_ms
+
+
+class _SpanStore:
+    """The process's spans: the finished records (bounded) and the stack of
+    open ones. The stack is the process's, not a thread's: remat recomputes
+    layers on the autograd engine's thread while the caller waits inside
+    its `backward()`, and those spans belong to that step."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.done: deque = deque(maxlen=SPAN_LIMIT)
+        self.open: List[SpanRecord] = []
+        self.seqs = itertools.count(1)
+        self.ids = itertools.count(1)
+
+
+_STORE = _SpanStore()
+
+
+class _NullSpan:
+    """What `span` returns while no profiler records: it does nothing."""
+
+    recording = False
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def count(self, **counts) -> None:
+        pass
+
+
+_NULL_SPAN = _NullSpan()
+
+
+class _Span:
+    recording = True
+
+    def __init__(self, name: str, stream: bool, counts: Dict[str, float]):
+        self.name, self.stream, self.counts = name, stream, counts
+
+    def __enter__(self):
+        self.range = torch.profiler.record_function(self.name)
+        self.range.__enter__()
+        store = _STORE
+        with store.lock:
+            parent = store.open[-1] if store.open else None
+            rec = SpanRecord(self.name, next(store.seqs), parent.seq if parent else None,
+                             parent.id if parent else next(store.ids), 0, counts=self.counts)
+            store.open.append(rec)
+        self.rec = rec
+        if (self.stream and torch.cuda.is_initialized()
+                and not torch.cuda.is_current_stream_capturing()):
+            rec.events = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            rec.events[0].record()
+        rec.start_ns = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        rec = self.rec
+        rec.end_ns = time.perf_counter_ns()
+        if rec.events is not None:
+            rec.events[1].record()
+        rec.error = exc_type is not None
+        store = _STORE
+        with store.lock:
+            # the innermost first; a span closed out of order is found too
+            for i in range(len(store.open) - 1, -1, -1):
+                if store.open[i] is rec:
+                    del store.open[i]
+                    break
+            store.done.append(rec)
+        self.range.__exit__(exc_type, exc, tb)
+        return False
+
+    def count(self, **counts) -> None:
+        """Add counts to the span (known only once some of its work is done)."""
+        self.rec.counts.update(counts)
+
+
+def span(name: str, *, stream: bool = True, **counts):
+    """A context manager that records the block as a span named `name`,
+    with `counts` (numbers: images, pixels, tokens), only while a
+    `torch.profiler` records (a schedule's active steps; `trace()`): else it
+    is a shared no-op, and the cost is one flag read. A recorded span opens
+    `torch.profiler.record_function(name)`, so it sits on the profiler's
+    timeline with the device's kernels, and keeps a `SpanRecord`: host
+    start and end, its parent (the innermost span open in the process), the
+    id of its root, the counts (more through `.count(...)` on what `with`
+    gives), and on a card, unless `stream` is False or the current stream
+    is capturing a graph, a pair of timing events on the current stream.
+    `.recording` says whether it records."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NULL_SPAN
+    return _Span(name, stream, counts)
+
+
+def spans() -> List[SpanRecord]:
+    """The finished spans, oldest first, their `device_ms` resolved (one
+    synchronise where some are pending)."""
+    with _STORE.lock:
+        out = list(_STORE.done)
+    pending = [r for r in out if r.events is not None]
+    if pending:
+        torch.cuda.synchronize()
+        for r in pending:
+            r.device_ms = r.events[0].elapsed_time(r.events[1])
+            r.events = None
+    return out
+
+
+def clear_spans() -> None:
+    """Forget the finished spans."""
+    with _STORE.lock:
+        _STORE.done.clear()
 
 
 class NonFiniteError(FloatingPointError):
@@ -163,47 +323,3 @@ def checkify_nans(model: nn.Module, fn: Callable) -> Callable:
         return NonFiniteReport(found), out
 
     return wrapped
-
-
-class SmoothedValue:
-    """`util/misc.py:33-97` equivalent: windowed median/avg tracker."""
-
-    def __init__(self, window: int = 20):
-        self.window = deque(maxlen=window)
-        self.total = 0.0
-        self.count = 0
-
-    def update(self, value: float, n: int = 1):
-        self.window.append(value)
-        self.total += value * n
-        self.count += n
-
-    @property
-    def avg(self) -> float:
-        return sum(self.window) / max(len(self.window), 1)
-
-    @property
-    def global_avg(self) -> float:
-        return self.total / max(self.count, 1)
-
-
-class MetricLogger:
-    """`util/misc.py:248-360` equivalent."""
-
-    def __init__(self, delimiter: str = "  "):
-        self.meters: Dict[str, SmoothedValue] = {}
-        self.delimiter = delimiter
-
-    def update(self, **kwargs):
-        for k, v in kwargs.items():
-            self.meters.setdefault(k, SmoothedValue()).update(float(v))
-
-    def __str__(self):
-        return self.delimiter.join(f"{k}: {m.avg:.4f}" for k, m in self.meters.items())
-
-    def log_every(self, iterable: Iterable, print_freq: int, header: str = ""):
-        t0 = time.time()
-        for i, obj in enumerate(iterable):
-            yield obj
-            if i % print_freq == 0:
-                logger.info("%s [%d] %s (%.1fs)", header, i, str(self), time.time() - t0)
