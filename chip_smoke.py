@@ -1,6 +1,7 @@
 """Drive the PyTorch port on one NVIDIA card and check it.
 
-    python3 chip_smoke.py [--profile DIR] [--phase3c | --phase12 | --phase13 | --phase14]
+    python3 chip_smoke.py [--profile DIR] [--phase3c | --phase3d | --phase12 | --phase13 |
+                           --phase14]
 
 Phases, in order (any failure raises, and the script exits non-zero):
   1. card: name, nvidia-smi name and power limit; TF32 off for f32 checks;
@@ -38,6 +39,17 @@ Phases, in order (any failure raises, and the script exits non-zero):
      to scipy's, one launch a call; the call and device time, the host scipy
      path's time, the bytes bound, and at N = 5, 100 and the padded shape
      the latency bound (`lsap_latency_bound`, with PR 8's beside it);
+  3d. the fusion layers' attention core: `fusion_attention` (the kernel
+     family of `csrc/fusion_attn.cu`) against `fusion_attention_plain` at
+     serve-coco's request (B = 2, Nv = 20197, Nl = 256) and the ODinW
+     requests' (B = 1, Nl = 32 and 64, Nv of the 800x1216 and 800x1344
+     buckets), 4 heads of 256, bf16, image and text masks partly set, each
+     call followed by a synchronise: call and device ms (as phase 3), the
+     bound (inputs read once, outputs written once, the three products), the
+     share of it, the plain version's ms, and as `library_ms` the parent's
+     path (bf16 logits, `.float()`, masked fills, the strided softmax over
+     Nv, the casts, the transposed product), timed here and never called by
+     the port; each kernel's device time under torch.profiler;
   4. whole model, card vs CPU: a reduced-depth f32 model (tiny Swin/BERT,
      2 + 2 layers) with the same seeded weights on both;
   4b. the same model's train step, card vs CPU: every loss and every
@@ -47,7 +59,8 @@ Phases, in order (any failure raises, and the script exits non-zero):
   5. main path: `dualzerorepbranchgroundingdino` at full width (Swin-T,
      BERT-base, 6 + 6 layers, 900 queries, bf16) answers `predict` requests
      on a synthetic 800x1216 image; every request must launch the MSDA
-     kernel 12 times (6 encoder + 6 decoder layers) and its backward never;
+     kernel 12 times (6 encoder + 6 decoder layers), the fusion kernel family
+     6 times (one a fusion layer) and MSDA's backward never;
      with --profile, where the time of those requests goes (`phase_profile`);
   5b. train path: the same model takes 4 `train_step`s on that image with a
      4-category caption and 5 seeded boxes, dropout at the preset's rates
@@ -528,7 +541,7 @@ def check_ptxas(name: str, text: str) -> int:
             rows[-1][-1] = int(m.group(1))
     for fn, frame, stores, loads, regs in rows:
         # ..._GLOBAL__N_..._msda_<file>_cu_...<len><kernel>I<type>Li<D>E[Li<L>ELi<P>E]E...
-        names = re.findall(r"(?:msda|lsap)_[a-z_]+", fn or "")
+        names = re.findall(r"(?:msda|lsap|fusion)_[a-z_]+", fn or "")
         kernel = names[-1] if names else fn
         t = re.search(r"I(f|13__nv_bfloat16)Li(\d+)E(?:Li(\d+)ELi\d+E)?", fn or "")
         label = kernel + (f"<{'f32' if t.group(1) == 'f' else 'bf16'}, D={t.group(2)}"
@@ -538,6 +551,11 @@ def check_ptxas(name: str, text: str) -> int:
         t = re.search(r"lsap_kernelILi(\d+)E", fn or "")
         if t:  # the instance's columns per thread
             label = f"lsap_kernel<{t.group(1)}>"
+        t = re.search(r"fusion_attn_(kernel|combine)ILi(\d+)E(?:Lb(\d)E)?", fn or "")
+        if t:  # the instance's head dim, and the pass of the attention kernel
+            label = f"fusion_attn_{t.group(1)}<hd={t.group(2)}" + (
+                "" if t.group(3) is None else ", text->image" if t.group(3) == "1"
+                else ", image->text") + ">"
         log(f"  {name}: {label}: {regs} registers, {frame} bytes stack frame, "
             f"{stores} bytes spill stores, {loads} bytes spill loads")
         if frame or stores or loads:
@@ -602,6 +620,110 @@ def phase_kernels(msda_forward, ms_deform_attn_plain):
                 record[name]["cold_l2_device_ms"] = cold
                 log(f"msda_forward {name} bf16 cold L2 ({L2_FLUSH_BYTES >> 20} MB written "
                     f"before each launch): device_ms={cold:.4f}")
+    return record
+
+
+# (name, B, Nv, Nl) of phase 3d: serve-coco's request, and the ODinW
+# requests' at the 800x1216 and 800x1344 buckets (20197 and 22323 tokens)
+ENC_S_1344 = 100 * 168 + 50 * 84 + 25 * 42 + 13 * 21
+FUSION_CASES = [("coco", 2, ENC_S, 256), ("odinw_t32", 1, ENC_S, 32),
+                ("odinw_t64", 1, ENC_S, 64), ("odinw_t32_1344", 1, ENC_S_1344, 32),
+                ("odinw_t64_1344", 1, ENC_S_1344, 64)]
+FUSION_HEADS, FUSION_HD = 4, 256  # every preset's fusion: embed 1024 over 4 heads
+FUSION_REL_TOL = 2e-2  # bf16 outputs; P rounded to bf16 before (kernel) or after (plain) normalising
+BF16_FLOPS = 989e12  # H100 SXM bf16 dense, NVIDIA data sheet
+
+
+def fusion_inputs(b, nv, nl, seed=0):
+    """Seeded projections' outputs [B, N, 4 * 256] bf16 (q_v at the scale
+    hd**-0.5 gives it) and masks: item 1's last tenth of image tokens
+    padded, each item's text valid up to a seeded length."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    e = FUSION_HEADS * FUSION_HD
+
+    def draw(n, scale=1.0):
+        return (scale * torch.randn(b, n, e, device="cuda", generator=g)).bfloat16()
+
+    q, k, vv, vl = draw(nv, 2.0 * FUSION_HD ** -0.5), draw(nl), draw(nv), draw(nl)
+    mask_v = torch.ones(b, nv, dtype=torch.bool, device="cuda")
+    mask_v[1:, nv - nv // 10:] = False
+    lengths = torch.randint(nl // 2, nl + 1, (b,), device="cuda", generator=g)
+    mask_l = torch.arange(nl, device="cuda")[None] < lengths[:, None]
+    return q, k, vv, vl, mask_v, mask_l, FUSION_HEADS
+
+
+def fusion_bound(b, nv, nl):
+    """Least time of the function (ms): q_v, val_v, k_l, val_l and the masks
+    read once, out_v and out_l written once at the memory rate, or the three
+    products (S, P_v val_l, P_l^T val_v) at the bf16 rate."""
+    e = FUSION_HEADS * FUSION_HD
+    nbytes = 2 * (3 * b * nv * e + 3 * b * nl * e) + b * (nv + nl)
+    flops = 3 * 2 * b * nv * nl * e
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes
+
+
+def parent_fusion_core(q, k, vv, vl, mask_v, mask_l, heads):
+    """The parent's inline path between the projections (the yardstick): bf16
+    logits cast to f32, the masked fills, `softmax(dim=-2)` over Nv (PyTorch's
+    strided kernel) and `softmax(dim=-1)`, the casts and both products."""
+    b, nv, e = q.shape
+    hd = e // heads
+
+    def split(t):
+        return t.reshape(t.shape[0], t.shape[1], heads, hd).transpose(1, 2)
+
+    logits = torch.matmul(split(q), split(k).transpose(-1, -2)).float()
+    attn_l = torch.softmax(logits.masked_fill(~mask_v[:, None, :, None], -1.0e9), dim=-2)
+    attn_v = torch.softmax(logits.masked_fill(~mask_l[:, None, None, :], -1.0e9), dim=-1)
+    out_v = torch.matmul(attn_v.to(q.dtype), split(vl))
+    out_l = torch.matmul(attn_l.to(q.dtype).transpose(-1, -2), split(vv))
+    return (out_v.transpose(1, 2).reshape(b, nv, e),
+            out_l.transpose(1, 2).reshape(b, k.shape[1], e))
+
+
+def phase_fusion_attention(fusion_attn):
+    """Phase 3d; returns {case: measurements}."""
+    record = {}
+    for name, b, nv, nl in FUSION_CASES:
+        args = fusion_inputs(b, nv, nl)
+        before = fusion_attn.fusion_attention.launches
+        got = fusion_attn.fusion_attention(*args)
+        torch.cuda.synchronize()
+        if fusion_attn.fusion_attention.launches != before + 1:
+            raise AssertionError("fusion_attention did not count its launch")
+        want = fusion_attn.fusion_attention_plain(*args)
+        torch.cuda.synchronize()
+        errs = {}
+        for what, g_, w_ in zip(("out_v", "out_l"), got, want):
+            scale = max(1.0, w_.float().abs().max().item())
+            errs[what] = (g_.float() - w_.float()).abs().max().item() / scale
+            if not errs[what] <= FUSION_REL_TOL:
+                raise AssertionError(f"fusion_attention disagrees with the plain version at "
+                                     f"{name}, {what}: {errs[what]} > {FUSION_REL_TOL}")
+        del got, want
+        ms = time_ms(lambda: fusion_attn.fusion_attention(*args))
+        device_ms = time_ms(lambda: fusion_attn.fusion_attention(*args), spin=True)
+        plain_ms = time_ms(lambda: fusion_attn.fusion_attention_plain(*args), n=5)
+        library_ms = time_ms(lambda: parent_fusion_core(*args), n=5)
+        bound_ms, bound_by, nbytes = fusion_bound(b, nv, nl)
+        kernels = {}
+        for e in device_launches(lambda: fusion_attn.fusion_attention(*args)):
+            label = ("combine" if "combine" in e.name else "text_to_image"
+                     if "true" in e.name else "image_to_text")
+            kernels[label] = kernels.get(label, 0.0) + e.time_range.elapsed_us() / 1e3
+        splits = fusion_attn.split_plan(b, FUSION_HEADS, nl, nv)
+        record[name] = dict(b=b, nv=nv, nl=nl, rel_err=errs, ms=ms, device_ms=device_ms,
+                            bound_ms=bound_ms, bound_by=bound_by, mb=nbytes / 1e6,
+                            share_of_bound=bound_ms / device_ms, plain_ms=plain_ms,
+                            library_ms=library_ms, kernel_ms=kernels, splits=splits)
+        log(f"fusion_attention {name} B={b} Nv={nv} Nl={nl} h={FUSION_HEADS} hd={FUSION_HD} "
+            f"rel_err={errs} call_ms={ms:.4f} device_ms={device_ms:.4f} "
+            f"bound_ms={bound_ms:.4f} ({bound_by}, {nbytes / 1e6:.1f} MB) share_of_bound "
+            f"device={bound_ms / device_ms:.3f} plain_ms={plain_ms:.3f} "
+            f"library_ms={library_ms:.3f} kernels_ms={kernels} splits={splits}")
+        del args
+        torch.cuda.empty_cache()
     return record
 
 
@@ -1076,6 +1198,8 @@ def phase_main_path(build_model, inference, tokenizer_mod, transforms, pc, msda_
     pixels, mask = synthetic_image(transforms, pc)
     captions = REQUEST_CAPTIONS
 
+    from ziragroundingdino_torch.ops.fusion_attn import fusion_attention
+
     captured = {}
     hook = model.register_forward_hook(lambda m, a, out: captured.__setitem__("out", out))
     msda_forward.launches = msda_backward.launches = 0
@@ -1084,6 +1208,7 @@ def phase_main_path(build_model, inference, tokenizer_mod, transforms, pc, msda_
     try:
         for i, caption in enumerate(captions):
             before = msda_forward.launches
+            fused_before = fusion_attention.launches
             torch.cuda.synchronize()
             t = time.perf_counter()
             boxes, scores, phrases = inference.predict(lm, pixels, mask, caption)
@@ -1091,9 +1216,11 @@ def phase_main_path(build_model, inference, tokenizer_mod, transforms, pc, msda_
             request_ms.append((time.perf_counter() - t) * 1e3)
             out = captured.pop("out")
             launched = msda_forward.launches - before
+            fused = fusion_attention.launches - fused_before
             logits, pboxes = out["pred_logits"], out["pred_boxes"]
             log(f"request {i}: {caption!r}: {request_ms[-1]:.1f} ms, {len(boxes)} boxes kept, "
-                f"msda_forward launches {launched}, phrases {phrases[:3]}")
+                f"msda_forward launches {launched}, fusion_attention launches {fused}, "
+                f"phrases {phrases[:3]}")
             if tuple(logits.shape) != (1, cfg.num_queries, cfg.max_text_len):
                 raise AssertionError(f"pred_logits shape {tuple(logits.shape)}")
             if tuple(pboxes.shape) != (1, cfg.num_queries, 4):
@@ -1104,6 +1231,8 @@ def phase_main_path(build_model, inference, tokenizer_mod, transforms, pc, msda_
                 raise AssertionError("boxes outside [0, 1]")
             if launched != cfg.enc_layers + cfg.dec_layers:
                 raise AssertionError(f"msda_forward launched {launched} times in one request")
+            if fused != cfg.enc_layers:
+                raise AssertionError(f"fusion_attention launched {fused} times in one request")
     finally:
         hook.remove()
     launches = msda_forward.launches
@@ -4786,6 +4915,9 @@ def main() -> int:
                         help="build the kernels and run phase 12 alone (no result line)")
     parser.add_argument("--phase3c", action="store_true",
                         help="build the kernels and run phase 3c alone (no result line)")
+    parser.add_argument("--phase3d", action="store_true",
+                        help="build the kernels, run phase 3d and phase 5's requests (no "
+                             "result line)")
     parser.add_argument("--phase13", action="store_true",
                         help="build the kernels and run phase 13 alone (no result line)")
     parser.add_argument("--phase13-worker", choices=["ab", "c"], default=None,
@@ -4819,6 +4951,7 @@ def main() -> int:
     )
     from ziragroundingdino_torch.ops import msda_cuda
     from ziragroundingdino_torch.ops.msda_cuda import msda_backward, msda_forward
+    from ziragroundingdino_torch.ops import fusion_attn
     from ziragroundingdino_torch.ops import lsap as lsap_mod
     from ziragroundingdino_torch.text import tokenizer as tokenizer_mod
     from ziragroundingdino_torch.train import criterion, matcher, optim, step
@@ -4842,6 +4975,11 @@ def main() -> int:
     if args.phase3c:
         log("phase 3c: " + json.dumps(phase_lsap(lsap_mod, matcher)))
         return 0
+    if args.phase3d:
+        log("phase 3d: " + json.dumps(phase_fusion_attention(fusion_attn)))
+        phase_main_path(build_model, inference, tokenizer_mod, transforms, pc, msda_forward,
+                        msda_backward, card_line)
+        return 0
     if args.phase13:
         log("phase 13: " + json.dumps(phase_tensor_sequence_parallel(
             build_model, optim, step, tokenizer_mod, transforms, pc, card_line)))
@@ -4862,6 +5000,8 @@ def main() -> int:
     rec_bwd = phase_backward(msda_cuda, ms_deform_attn_backward_plain)
     count_scipy_calls(matcher)
     rec_lsap = phase_lsap(lsap_mod, matcher)
+    rec_fusion = phase_fusion_attention(fusion_attn)
+    torch.cuda.empty_cache()
 
     # 4. whole model, card vs CPU: serving, then the train step
     models = tiny_models(pc, build_model, tokenizer_mod)
@@ -4870,8 +5010,10 @@ def main() -> int:
     del models
 
     # 5. main path at full width: serving, then training
+    fused_before = fusion_attn.fusion_attention.launches
     launches, request = phase_main_path(build_model, inference, tokenizer_mod, transforms, pc,
                                         msda_forward, msda_backward, card_line)
+    fused_launches = fusion_attn.fusion_attention.launches - fused_before
     if args.profile is not None:
         phase_profile(inference, request, args.profile, card_line)
     del request
@@ -5086,6 +5228,27 @@ def main() -> int:
                               "12b": phase_12["12b"][3]},
         "phase_13_launches_per_rank_step": phase_13_launches(2),
         "phase_14_launches_per_rank_step": phase_14_launches(2),
+    }, {
+        "name": "fusion_attention",
+        "route": "cuda",
+        "source": "ziragroundingdino_torch/csrc/fusion_attn.cu",
+        "replaces": None,
+        "replaces_why": "no TPU kernel: the JAX fusion leaves it to XLA; added for the "
+                        "parent's strided softmax over Nv and its f32 logits in device memory",
+        "launches": fused_launches,
+        "launches_are": "calls of the family (image->text, text->image, combine) in phase "
+                        "5's requests, 6 a request",
+        "max_abs_err": max(rec_fusion["coco"]["rel_err"].values()),
+        "ms": rec_fusion["coco"]["ms"],
+        "plain_ms": rec_fusion["coco"]["plain_ms"],
+        "bound_ms": rec_fusion["coco"]["bound_ms"],
+        "bound_by": rec_fusion["coco"]["bound_by"],
+        "library_ms": rec_fusion["coco"]["library_ms"],
+        "timed_at": "serve-coco's request, B=2 Nv=20197 Nl=256, 4 heads of 256, bf16; "
+                    "max_abs_err relative to the output's scale; library_ms: the parent's "
+                    "matmul + strided softmax path",
+        "device_ms": rec_fusion["coco"]["device_ms"],
+        "by_case": rec_fusion,
     }]
     log("train_step: " + json.dumps({
         "warm_median_ms": step_ms, "peak_memory_gib": peak / 2**30,

@@ -9,6 +9,12 @@ never bind in f32. `BiAttentionBlock`: pre-LN, layer scale gamma_v/gamma_l
 (init 1e-4), residual onto the *normalized* input as in the reference
 (`:288-303`). Masks are True = valid. Attention dropout and drop path draw
 from the generator given to `forward`, and are off without one.
+
+On the inference path (grad off, no sequence parallelism, attention dropout
+inactive, bf16 compute) the attention between the projections is one call of
+`ops/fusion_attn.py::fusion_attention`: the hand-written kernel on the card,
+its plain version on the CPU. Training (and remat's forward and recompute),
+sequence parallelism and f32 runs take the inline path below.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from torch import nn
 from torch.distributed import ReduceOp
 
 from ziragroundingdino_torch.models.layers import NEG_INF, LayerNorm, Linear, drop_path, dropout
+from ziragroundingdino_torch.ops.fusion_attn import fusion_attention
 from ziragroundingdino_torch.parallel import dist
 
 
@@ -56,6 +63,13 @@ class BiMultiHeadAttention(nn.Module):
         h = self.num_heads
         hd = self.embed_dim // h
         cd = self.compute_dtype or v.dtype
+
+        if (shard is None and not torch.is_grad_enabled() and cd == torch.bfloat16
+                and (generator is None or self.dropout == 0.0)):
+            out_v, out_l = fusion_attention(self.v_proj(v) * hd ** -0.5, self.l_proj(l),
+                                            self.values_v_proj(v), self.values_l_proj(l),
+                                            mask_v, mask_l, h)
+            return self.out_v_proj(out_v), self.out_l_proj(out_l)
 
         def heads(t):
             return t.reshape(t.shape[0], t.shape[1], h, hd).transpose(1, 2)
