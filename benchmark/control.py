@@ -12,6 +12,11 @@ program itself, as a run drives it but without the timed window, for many
 seeds in one process (set-up once): serving sends the sample's requests
 through the warmed Predictor, training drives set-up's checked steps.
 
+A cell of several cards reads `--program` on its data mesh: one worker a
+card (`run.py::start_ranks`), each setting up every seed in turn, rank 0
+printing. `--fault own-shard` is a data-parallel cell's fault: rank 0's
+rows alone, as a rank that steps without the exchange.
+
 Prints one JSON line per seed, {"seed", "numbers"}, then {"min": {...}}
 and {"max": {...}} over the seeds. The benchmark's own runs do not run it.
 Serving takes the seed's longest request and the first others of its
@@ -26,6 +31,7 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+PROGRAM_S_PER_SEED = 120.0  # a data-parallel program reading's set-up and check, at most
 
 
 def sample(cycle, n):
@@ -36,10 +42,12 @@ def sample(cycle, n):
 
 
 def program_numbers(conf, mix, seed, device, state):
-    """The program's numbers on the seed's sample, as a run would read them."""
+    """The program's numbers on the seed's sample, as a run would read them
+    (on a data mesh: rank 0's; None on the other ranks)."""
     import torch
 
     from benchmark.lib import check
+    from benchmark.lib.ddp import DDPTrainRun
     from benchmark.lib.serve import Sample, ServeRun
     from benchmark.lib.train import TrainRun
 
@@ -54,11 +62,13 @@ def program_numbers(conf, mix, seed, device, state):
             s.recorded = j
         run.keys_after = run.captured()
     else:
-        run = TrainRun(conf, mix, seed, device)
+        run = (DDPTrainRun if mix["kind"] == "train-ddp" else TrainRun)(conf, mix, seed, device)
         run.setup(state())
     run.free()
     if device.type == "cuda":
         torch.cuda.empty_cache()
+    if getattr(run, "rank", 0) != 0:
+        return None
     return check.run_check(run, state)
 
 
@@ -92,22 +102,39 @@ def main(argv=None, load=None, device_override=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seeds", type=int, nargs="+", required=True)
-    ap.add_argument("--fault", choices=("half-batch",), default=None,
+    ap.add_argument("--fault", choices=("half-batch", "own-shard"), default=None,
                     help="read a planted fault instead of the control (training cells)")
     ap.add_argument("--program", action="store_true",
                     help="read the program instead of the control")
     args = ap.parse_args(argv)
     if str(ROOT) not in sys.path:
         sys.path.insert(0, str(ROOT))
-    import torch
-
     from benchmark import run as bench
-    from benchmark.lib import check, weights
-    from benchmark.reference.model import RefConfig, state_shapes
 
     bench.cache_dirs()
     _, cell, conf, mix, _ = (load or bench.load_cell)(args.workload)
-    device = torch.device(device_override or "cuda")
+    ranks = cell["chips"] if args.program else 1
+    if ranks > 1:
+        return bench.start_ranks(read, (args, cell, conf, mix, ranks, device_override), ranks,
+                                 PROGRAM_S_PER_SEED * len(args.seeds), device_override)
+    return read(args, cell, conf, mix, ranks, device_override)
+
+
+def read(args, cell, conf, mix, ranks: int, device_override=None) -> int:
+    """Print each seed's numbers, then their least and largest; on a data
+    mesh of `ranks`, this rank's part of it (rank 0 prints)."""
+    import torch
+
+    from benchmark.lib import check, weights
+    from benchmark.reference.model import RefConfig, state_shapes
+
+    pdist = None
+    if ranks > 1:
+        from ziragroundingdino_torch.parallel import dist as pdist
+
+        device = pdist.init_from_env(device_override)
+    else:
+        device = torch.device(device_override or "cuda")
     shapes = state_shapes(RefConfig.from_file(conf))
     low, high = {}, {}
     for seed in args.seeds:
@@ -116,6 +143,10 @@ def main(argv=None, load=None, device_override=None) -> int:
 
         if args.program:
             numbers = program_numbers(conf, mix, seed, device, state)
+            if pdist is not None:
+                pdist.barrier()
+            if numbers is None:
+                continue
         else:
             numbers = check.control_numbers(control_run(cell, conf, mix, seed, device), state,
                                             args.fault)
@@ -125,6 +156,11 @@ def main(argv=None, load=None, device_override=None) -> int:
             high[k] = max(high.get(k, float("-inf")), v)
         if device.type == "cuda":
             torch.cuda.empty_cache()
+    if pdist is not None:
+        rank = pdist.process_index()
+        pdist.destroy()
+        if rank != 0:
+            return 0
     print(json.dumps({"min": low}), flush=True)
     print(json.dumps({"max": high}), flush=True)
     return 0

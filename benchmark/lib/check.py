@@ -75,13 +75,28 @@ def serve_numbers(run, state, control: bool = False) -> Dict[str, float]:
 
 
 # ---------------------------------------------------------------- training
-def _reference_steps(run, ref, topk=None, matched=None, half_batch: bool = False):
+def step_generator(run, k: int):
+    """What the program's step k drew its dropout from: the iteration's
+    generator, or on a data mesh (the traffic's `ranks`) each rank's, over
+    its rows of the batch."""
+    ranks = run.mix.get("ranks", 1)
+    if ranks == 1:
+        return iteration_generator(run.seed, k, run.device)
+    from benchmark.lib.ddp import rank_generator
+
+    return R.ShardGenerators([rank_generator(run.seed, k, r, run.device) for r in range(ranks)],
+                             run.mix["batch"] // ranks)
+
+
+def _reference_steps(run, ref, topk=None, matched=None, fault: str = None):
     """Three reference steps on the run's first three batches: (losses,
     first clipped gradients, changes, each step's selection and
     assignments, and the widest selection and match gaps of the given
     ones). With `topk` / `matched` (per step) the steps follow that
-    selection and those assignments. With `half_batch`, the fault of a step
-    that leaves out half of each batch and takes the mean over the rest."""
+    selection and those assignments. `fault`: "half-batch", a step that
+    leaves out half of each batch and takes the mean over the rest;
+    "own-shard", rank 0 of a data mesh stepping on its own rows alone (the
+    exchange between the ranks left out)."""
     tc = run.conf["train"]
     o = tc["optimizer"]
     ref.configure(enc_checkpoint=True).train()
@@ -99,9 +114,12 @@ def _reference_steps(run, ref, topk=None, matched=None, half_batch: bool = False
     law = run.conf["model"]["loss_adapter_weight"]
     for k in range(run.mix["check"]["steps"]):
         images = run.cycle[k]
-        px, mask, batch = run.reference_batch(images[:len(images) // 2] if half_batch
-                                              else images)
-        gen = iteration_generator(run.seed, k, run.device)
+        if fault == "half-batch":
+            images = images[:len(images) // 2]
+        elif fault == "own-shard":
+            images = images[:len(images) // run.mix.get("ranks", 1)]
+        px, mask, batch = run.reference_batch(images)
+        gen = step_generator(run, k)
         # the program's selection, where it selected for this batch
         sel = (topk[k].to(run.device) if topk is not None and k < len(topk)
                and topk[k].shape[0] == px.shape[0] else None)
@@ -109,13 +127,17 @@ def _reference_steps(run, ref, topk=None, matched=None, half_batch: bool = False
         selections.append(out["topk_idx"].detach())
         given = None
         if sel is not None:
-            gaps["select_gap"] = max(gaps["select_gap"], max(
-                compare.selection_gap(out["enc_scores"][i].detach(), sel[i])
-                for i in range(sel.shape[0])))
+            step_gap = max(compare.selection_gap(out["enc_scores"][i].detach(), sel[i])
+                           for i in range(sel.shape[0]))
+            gaps["select_gap"] = max(gaps["select_gap"], step_gap)
+            gaps[f"select_gap_{k + 1}"] = step_gap
             if matched is not None and k < len(matched):
                 given = matched[k].to(run.device).chunk(len(out["aux_outputs"]) + 2)
         total, used, gap = RT.total_loss(out, batch, law, given)
-        gaps["match_gap"] = max(gaps["match_gap"], gap)
+        if given is not None:
+            gaps["match_gap"] = max(gaps["match_gap"], gap["match_gap"])
+            for name, v in gap.items():
+                gaps[f"{name}_{k + 1}"] = v
         assignments.append(torch.cat(used))
         total.backward()
         del out
@@ -132,8 +154,8 @@ def train_numbers(run, state, control: bool = False, fault: str = None) -> Dict[
     ref = _reference(run, state)
     if control or fault:
         with precision.control() if control else contextlib.nullcontext():
-            p_losses, p_grads, p_change, topk, matched, _ = _reference_steps(
-                run, ref, half_batch=fault == "half-batch")
+            p_losses, p_grads, p_change, topk, matched, _ = _reference_steps(run, ref,
+                                                                             fault=fault)
         ref = _reference(run, state)
     else:
         c = run.check
@@ -152,8 +174,11 @@ def train_numbers(run, state, control: bool = False, fault: str = None) -> Dict[
     return {
         "loss_gap": max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(p_losses, losses)),
         "grad_gap": float(np.median([row[0] for row in g])),
-        "update_gap": u[0][0],
+        "update_gap": float(np.median([row[0] for row in u])),
+        "update_worst": u[0][0],
+        "unmoved": float(sum(1 for _, _, a, b in u if a == 0.0 and b > 0.0)),
         **gaps,
+        **getattr(run, "rank_numbers", {}),
     }
 
 

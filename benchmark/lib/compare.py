@@ -45,13 +45,29 @@ CPU, `tests/test_bench_reference.py`):
     leaf is a branch's `scaling`, a scalar whose gradient is one sum over
     every image token with much cancellation: its gap swings from seed to
     seed as widely as the control's, so it is printed;
-  * `update_gap`: the worst leaf's gap of the change over the three steps;
+  * `update_gap`: the median leaf's gap of the change over the three
+    steps; `update_worst` the worst leaf's. A branch's `scaling` is one
+    element whose gradient cancels over every image token: AdamW moves it
+    about lr a step by that gradient's sign, which the program's rounding
+    can turn, so the worst leaf swings from seed to seed as `grad_gap`'s
+    does;
+  * `unmoved`: the leaves that the reference moves and the program leaves
+    exactly where they were (a `scaling` left out of the update among
+    them): 0 in a sound run;
   * `select_gap`: as serving's, of the program's selection in each of the
-    three steps against the reference's selection scores in that step;
-  * `match_gap`: the program's assignments against the exact optimum of
-    the reference's costs: the assignment's total cost above the optimum's,
-    over the sum of the optimum's |costs|; the widest over outputs, images
-    and steps.
+    three steps against the reference's selection scores in that step
+    (`select_gap_<k>` each step's, printed);
+  * `match_gap` (printed, not compared): the program's assignments against
+    the exact optimum of the reference's costs, the assignment's total cost
+    above the optimum's, over the sum of the optimum's |costs|, the widest
+    over outputs, images and steps; `match_gap_<k>` each step's, and
+    `match_spread_<k>` each step's over the sum of the targets' cost
+    spreads instead. A sum of |costs| can lie near 0, and from step 2 the
+    two sides' weights differ: neither separates sound runs from the fp8
+    control (see PERF.md);
+  * `rank_gap` (a data mesh): the largest difference of any rank's first
+    gradient or change from rank 0's, over the largest magnitude of rank
+    0's: exactly 0 where DDP hands every rank one average.
   Leaves whose reference gradient is under a thousandth of the median
   leaf's are left out of both leaf gaps (none of the ZiRa cells' leaves is).
 """

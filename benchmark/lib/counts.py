@@ -38,19 +38,30 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 
 
-def level_shapes(h: int, w: int, levels: int = 4) -> List[Tuple[int, int]]:
-    """The encoder's feature-map sizes for an (h, w) input: Swin's strides
-    8, 16, 32 (each patch merge pads an odd side) and the extra stride-2
-    conv level."""
+def level_shapes(h: int, w: int, levels: int = 4,
+                 indices: Sequence[int] = (1, 2, 3)) -> List[Tuple[int, int]]:
+    """The encoder's feature-map sizes for an (h, w) input: Swin's stages
+    `indices` (stage i at stride 2^(2 + i): the patch embedding's 4, then
+    each patch merge halves, padding an odd side), then extra stride-2 conv
+    levels up to `levels`."""
     hh, ww = math.ceil(h / 4), math.ceil(w / 4)
     out = []
-    for _ in range(3):
-        hh, ww = math.ceil(hh / 2), math.ceil(ww / 2)
-        out.append((hh, ww))
+    for i in range(max(indices) + 1):
+        if i:
+            hh, ww = math.ceil(hh / 2), math.ceil(ww / 2)
+        if i in indices:
+            out.append((hh, ww))
     while len(out) < levels:
         hh, ww = math.ceil(hh / 2), math.ceil(ww / 2)
         out.append((hh, ww))
-    return out
+    return out[:levels]
+
+
+def conf_level_shapes(conf: Dict, h: int, w: int) -> List[Tuple[int, int]]:
+    """`level_shapes` at a configuration's `return_interm_indices` and
+    `num_feature_levels`."""
+    m = conf["model"]
+    return level_shapes(h, w, m["num_feature_levels"], tuple(m["return_interm_indices"]))
 
 
 def msda_forward_bound(b: int, q: int, s: int, heads: int = 8, d: int = 32, levels: int = 4,
@@ -83,13 +94,15 @@ class ModelFlops:
 
     The count splits into the backbone's, counted directly at each image
     size, and the rest's (input projections, BERT, encoder, selection,
-    decoder, heads), which is exactly linear in the features [N_0, .., N_3
-    (tokens per level), S * T (S = their sum), 1, T, T^2]: every product
+    decoder, heads), which is exactly linear in the features [N_0, ..,
+    N_{L-1} (tokens per level, one per level of `num_feature_levels`), S * T
+    (S = their sum), 1, T, T^2]: every product
     after the backbone runs over the tokens of one level, over all of
     them (the fusion and the two-stage head, times T), over the text
     tokens or over the 900 queries. The rest's coefficients are solved from
-    counts at `FIT_POINTS` level sizes (the backbone replaced by a stub that
-    only shapes its outputs) and checked on one more before any use."""
+    counts at `FIT_POINTS` level sizes, or L + 4 where that is more (the
+    backbone replaced by a stub that only shapes its outputs), and checked
+    on one more before any use."""
 
     FIT_POINTS = 8
 
@@ -98,6 +111,8 @@ class ModelFlops:
 
         self.c = RefConfig.from_file(conf)
         self.train = train
+        self.indices = tuple(conf["model"]["return_interm_indices"])
+        self.levels = conf["model"]["num_feature_levels"]
         with torch.device("meta"):
             # one gather over all queries: the meta device holds no memory
             self.model = GroundingDINO(self.c).configure(msda_chunk=1 << 40)
@@ -149,19 +164,24 @@ class ModelFlops:
         return self._swin[(h, w)]
 
     def rest(self, shapes: Sequence[Tuple[int, int]], t: int) -> int:
-        """The rest counted with the backbone's outputs at `shapes` (3 levels)."""
+        """The rest counted with the backbone's outputs at `shapes` (one a
+        backbone level)."""
         dev = torch.device("meta")
         feats = [(torch.empty(1, hh, ww, ch, device=dev),
                   torch.ones(1, hh, ww, dtype=torch.bool, device=dev))
                  for (hh, ww), ch in zip(shapes, self.channels)]
-        h, w = 8 * shapes[0][0], 8 * shapes[0][1]
+        stride = 2 ** (2 + min(self.indices))
+        h, w = stride * shapes[0][0], stride * shapes[0][1]
         return self._count(h, w, t, stub=lambda *a, **k: feats)
 
-    @staticmethod
-    def features(shapes: Sequence[Tuple[int, int]], t: int) -> List[float]:
+    def features(self, shapes: Sequence[Tuple[int, int]], t: int) -> List[float]:
+        """The features of the backbone's level sizes `shapes`: every level's
+        tokens, the extra levels' after the backbone's."""
         n = [hh * ww for hh, ww in shapes]
-        h3, w3 = shapes[-1]
-        n.append(math.ceil(h3 / 2) * math.ceil(w3 / 2))
+        hh, ww = shapes[-1]
+        while len(n) < self.levels:
+            hh, ww = math.ceil(hh / 2), math.ceil(ww / 2)
+            n.append(hh * ww)
         s = sum(n)
         return [float(x) for x in n] + [float(s * t), 1.0, float(t), float(t * t)]
 
@@ -170,17 +190,18 @@ class ModelFlops:
 
         rng = np.random.default_rng(0)
         rows, vals = [], []
-        for i in range(self.FIT_POINTS + 1):
+        nb = len(self.channels)
+        n = max(self.FIT_POINTS, self.levels + 4)
+        for i in range(n + 1):
             # level 0 holds more tokens than the queries, as every real image does
-            shapes = [(int(rng.integers(8, 30)) * 2 ** (2 - k) + int(rng.integers(0, 2)),
-                       int(rng.integers(8, 30)) * 2 ** (2 - k) + int(rng.integers(0, 2)))
-                      for k in range(3)]
+            shapes = [(int(rng.integers(8, 30)) * 2 ** (nb - 1 - k) + int(rng.integers(0, 2)),
+                       int(rng.integers(8, 30)) * 2 ** (nb - 1 - k) + int(rng.integers(0, 2)))
+                      for k in range(nb)]
             t = int(rng.integers(3, 40))
             rows.append(self.features(shapes, t))
             vals.append(self.rest(shapes, t))
         a = np.array(rows, np.float64)
         b = np.array(vals, np.float64)
-        n = self.FIT_POINTS
         coef = np.linalg.lstsq(a[:n], b[:n], rcond=None)[0]
         check = np.rint(a[n:] @ coef)
         if not np.array_equal(check, b[n:]):
@@ -195,7 +216,7 @@ class ModelFlops:
         if key not in self._cache:
             if self._coef is None:
                 self._fit()
-            shapes = level_shapes(h, w, 3)
+            shapes = level_shapes(h, w, len(self.indices), self.indices)
             rest = float(sum(c * f for c, f in zip(self._coef, self.features(shapes, t))))
             self._cache[key] = self.swin(h, w) + int(round(rest))
         return self._cache[key]

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 from typing import List, Tuple
 
-from benchmark.lib.counts import HBM_BYTES_PER_S, PEAK_BF16_FLOPS, level_shapes
+from benchmark.lib.counts import HBM_BYTES_PER_S, PEAK_BF16_FLOPS, conf_level_shapes
 
 # device kernels of the family, matched by name: image->text, text->image
 # (`fusion_attn_kernel`) and the splits' combine (`fusion_attn_combine`)
@@ -51,6 +51,6 @@ def fusion_calls(ctx) -> List[Tuple[int, int, int]]:
     out = []
     for req in ctx.trace.items:
         bsz, bucket, text = ctx.run.key(req)[:3]
-        nv = sum(hh * ww for hh, ww in level_shapes(*bucket, m["num_feature_levels"]))
+        nv = sum(hh * ww for hh, ww in conf_level_shapes(ctx.conf, *bucket))
         out += [(bsz, nv, text)] * m["enc_layers"]
     return out

@@ -1,6 +1,6 @@
 """Instruments the traced run puts on the program from outside it.
 
-Training: CUDA events around `Optimizer.step`, wrapped on the instance (as
+Training (one card or data-parallel: rank 0's): CUDA events around `Optimizer.step`, wrapped on the instance (as
 `chip_smoke.py::record_gradients` wraps it), and around every call of the
 encoder's layer modules (fusion, text, deformable) from forward pre- and
 post-hooks: a call of each in the forward, and again in the backward where
@@ -29,7 +29,7 @@ def _events_ms(pairs: List[list]) -> List[float]:
 
 
 def instrument(run, device) -> Dict[str, Callable[[], List[float]]]:
-    if run.mix["kind"] != "train" or device.type != "cuda":
+    if run.mix["kind"] == "serve" or device.type != "cuda":
         return {}
     optim: List[List[torch.cuda.Event]] = []
     encoder: List[List[torch.cuda.Event]] = []

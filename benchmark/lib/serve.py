@@ -120,7 +120,7 @@ class ServeRun:
                                   for k, v in self.mix.get("data", {}).items()})
         self.bsz = _bucket(self.mix["batch"], p["batch_buckets"])
         self.model = program.build(self.conf, state, self.device)
-        tokens = max(level_tokens(b) for b in self.dcfg.shape_buckets)
+        tokens = max(level_tokens(self.conf, b) for b in self.dcfg.shape_buckets)
         self.recorder = Recorder(self.model, self.bsz, self.mix["check"]["requests"], tokens,
                                  self.device)
         self.predictor = Predictor(self.model, WordPieceTokenizer(self.vocab), self.dcfg,
@@ -262,8 +262,8 @@ class ServeRun:
                 torch.tensor(orig, device=dev), n)
 
 
-def level_tokens(bucket) -> int:
-    """The encoder's tokens at an image bucket."""
-    from benchmark.lib.counts import level_shapes
+def level_tokens(conf: Dict, bucket) -> int:
+    """The encoder's tokens of a configuration at an image bucket."""
+    from benchmark.lib.counts import conf_level_shapes
 
-    return sum(h * w for h, w in level_shapes(*bucket))
+    return sum(h * w for h, w in conf_level_shapes(conf, *bucket))

@@ -16,8 +16,10 @@ window: `chip_smoke.py::profile_window`'s arithmetic), device time by
 kernel name of the kernels that start inside the window, the idle gaps between busy intervals by the host operation
 that was running at each gap's middle ("python" where none was), the
 device time launched under `_MSDAFunctionBackward` autograd nodes, the MSDA
-forward launches made from the backward (remat's recompute), and per
-request the host time from the step's start to its `cudaGraphLaunch`.
+forward launches made from the backward (remat's recompute), the time in
+which a collective kernel (`nccl...`) ran and no other device operation
+did (the collectives' exposed time), and per request the host time from
+the step's start to its `cudaGraphLaunch`.
 """
 
 from __future__ import annotations
@@ -33,6 +35,22 @@ SCHEDULES = {"serve": dict(wait=20, warmup=2, active=8),
              "train": dict(wait=3, warmup=1, active=2)}
 GAP_MIN_US = 5.0  # shorter idle gaps are not attributed
 FORWARD_KERNEL = "msda_forward_kernel"
+COLLECTIVE = "nccl"  # the start of a collective kernel's name
+
+
+def overlap(a: List[Tuple[float, float]], b: List[Tuple[float, float]]) -> float:
+    """The length of the intersection of two merged interval lists."""
+    i = j = 0
+    total = 0.0
+    while i < len(a) and j < len(b):
+        lo, hi = max(a[i][0], b[j][0]), min(a[i][1], b[j][1])
+        if hi > lo:
+            total += hi - lo
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
 
 
 def merged(intervals: List[Tuple[float, float]]) -> List[Tuple[float, float]]:
@@ -54,6 +72,7 @@ class TraceResult:
     launches: Dict[str, int] = field(default_factory=lambda: defaultdict(int))
     gaps_s: Dict[str, float] = field(default_factory=lambda: defaultdict(float))
     msda_bwd_s: float = 0.0
+    collective_exposed_s: float = 0.0
     from_backward: Dict[str, Tuple[float, int]] = field(default_factory=dict)
     prep_ms: List[float] = field(default_factory=list)
     items: List[Any] = field(default_factory=list)  # the profiled steps' requests or batches
@@ -141,7 +160,7 @@ class Tracer:
         w1 = max(e.time_range.end for e in steps)
         dev = [e for e in events if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
-        spans = []
+        spans, coll, other = [], [], []
         for e in dev:
             a, b = max(e.time_range.start, w0), min(e.time_range.end, w1)
             if w0 <= e.time_range.start <= w1:
@@ -149,8 +168,12 @@ class Tracer:
                 r.launches[e.name] += 1
             if b > a:
                 spans.append((a, b))
+                (coll if e.name.startswith(COLLECTIVE) else other).append((a, b))
         busy = merged(spans)
         r.busy_s += sum(b - a for a, b in busy) * 1e-6
+        coll = merged(coll)
+        r.collective_exposed_s += (sum(b - a for a, b in coll)
+                                   - overlap(coll, merged(other))) * 1e-6
         r.window_s += (w1 - w0) * 1e-6
         # idle gaps, by the innermost host operation running at their middle
         cpu = [e for e in events if e.device_type == DeviceType.CPU

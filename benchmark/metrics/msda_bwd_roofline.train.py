@@ -9,7 +9,7 @@ from benchmark.lib.counts import msda_backward_bound
 
 def read(ctx):
     seconds = ctx.trace.msda_bwd_s
-    calls = ctx.msda_calls()
-    if seconds <= 0 or not calls:
+    bounds = ctx.msda_bounds(msda_backward_bound)
+    if seconds <= 0 or not bounds:
         return None
-    return 100.0 * sum(msda_backward_bound(b, q, s)[0] for b, q, s in calls) / seconds
+    return 100.0 * sum(t for t, _ in bounds) / seconds

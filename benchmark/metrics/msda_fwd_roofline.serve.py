@@ -9,10 +9,10 @@ from benchmark.lib.counts import msda_forward_bound
 
 def read(ctx):
     seconds, launches = ctx.trace.forward_device_s("msda_forward_kernel")
-    calls = ctx.msda_calls()
-    if not launches or abs(launches - len(calls)) > 0.05 * len(calls):
+    bounds = ctx.msda_bounds(msda_forward_bound)
+    if not launches or abs(launches - len(bounds)) > 0.05 * len(bounds):
         return None
     # the mean call's bound for each launch the trace holds: a launch whose
     # record the profiler dropped takes its time out as well
-    mean = sum(msda_forward_bound(b, q, s)[0] for b, q, s in calls) / len(calls)
+    mean = sum(t for t, _ in bounds) / len(bounds)
     return 100.0 * mean * launches / seconds

@@ -18,9 +18,11 @@ control rounds to fp8. MSDA is the plain bilinear gather. Dropout and
 stochastic depth draw their masks from the generator handed to `forward`
 in the order the measured model draws them (`torch.rand` of the mask's
 shape, kept where below 1 - rate), so that one generator gives both the
-same masks. `forward(..., topk_idx=...)` starts the decoder from the given
-query selection instead of its own, for the comparison that follows the
-program's selection (see `benchmark/lib/serve.py`).
+same masks; a `ShardGenerators` gives each shard of the batch the masks
+that a data-parallel rank draws for it. `forward(..., topk_idx=...)`
+starts the decoder from the given query selection instead of its own, for
+the comparison that follows the program's selection (see
+`benchmark/lib/serve.py`).
 """
 
 from __future__ import annotations
@@ -81,7 +83,30 @@ class RefConfig:
 
 
 # ---------------------------------------------------------------- basics
+class ShardGenerators:
+    """The generators of a global batch's shards, each of which draws the
+    masks of its own images, as data-parallel ranks each draw theirs from a
+    generator of their own: a mask's rows are the shards' draws, in order,
+    each over as many rows of the batch as its shard holds."""
+
+    def __init__(self, gens, rows: int):
+        self.gens, self.rows = list(gens), rows
+        self.device = self.gens[0].device
+
+    def rand(self, shape) -> torch.Tensor:
+        parts, left = [], shape[0]
+        for g in self.gens:
+            n = min(self.rows, left)
+            if n <= 0:
+                break
+            parts.append(torch.rand((n,) + tuple(shape[1:]), generator=g, device=g.device))
+            left -= n
+        return torch.cat(parts)
+
+
 def draw_keep(shape, rate: float, gen) -> torch.Tensor:
+    if isinstance(gen, ShardGenerators):
+        return gen.rand(shape) < 1.0 - rate
     return torch.rand(tuple(shape), generator=gen, device=gen.device) < 1.0 - rate
 
 

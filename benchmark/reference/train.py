@@ -82,25 +82,31 @@ def _losses(logits, boxes, labels, tboxes, valid, q_of, num_boxes, alpha=0.25, g
             "loss_giou": ((1 - giou) * valid.float()).sum() / num_boxes}
 
 
-def match_gap(cost: torch.Tensor, q_of: torch.Tensor, valid: torch.Tensor) -> float:
-    """How far an assignment's total cost lies above the optimum's, over the
-    sum of the optimum's |costs|; the widest over the images."""
+def match_gap(cost: torch.Tensor, q_of: torch.Tensor, valid: torch.Tensor) -> Dict[str, float]:
+    """How far an assignment's total cost lies above the optimum's, the
+    widest over the images: `match_gap` over the sum of the optimum's
+    |costs|, `match_spread` over the sum over the targets of the spread
+    (standard deviation over the queries) of each target's costs."""
     best = assign(cost)
-    gap = 0.0
+    gap = {"match_gap": 0.0, "match_spread": 0.0}
     for i in range(cost.shape[0]):
         cols = torch.nonzero(valid[i]).flatten()
         if not len(cols):
             continue
         got = cost[i, q_of[i, cols], cols].double().sum()
         opt = cost[i, best[i, cols], cols].double()
-        gap = max(gap, float((got - opt.sum()) / opt.abs().sum().clamp(min=1e-30)))
+        spread = cost[i][:, cols].double().std(0).sum()
+        gap["match_gap"] = max(gap["match_gap"],
+                               float((got - opt.sum()) / opt.abs().sum().clamp(min=1e-30)))
+        gap["match_spread"] = max(gap["match_spread"],
+                                  float((got - opt.sum()) / spread.clamp(min=1e-30)))
     return gap
 
 
 def total_loss(out: Dict, batch: Dict, loss_adapter_weight: float,
-               assignments: Sequence[torch.Tensor] = None) -> Tuple[torch.Tensor, List, float]:
+               assignments: Sequence[torch.Tensor] = None) -> Tuple[torch.Tensor, List, Dict]:
     """(weighted total, the assignments of the 7 outputs, the widest
-    `match_gap` of the given ones). With `assignments` (the 7 outputs'
+    `match_gap` readings of the given ones). With `assignments` (the 7 outputs'
     [B, N] query indices, in the order last, auxiliary, two-stage) the losses
     take them, and their distance from this model's optimum is measured;
     else the exact solver assigns."""
@@ -109,7 +115,7 @@ def total_loss(out: Dict, batch: Dict, loss_adapter_weight: float,
     outs = [out] + list(out["aux_outputs"]) + [out["interm_outputs"]]
     num_boxes = valid.float().sum().clamp(min=1.0)
     total = torch.zeros((), device=labels.device)
-    used, gap = [], 0.0
+    used, gap = [], {"match_gap": 0.0, "match_spread": 0.0}
     for j, o in enumerate(outs):
         cls = per_category(o["pred_logits"], c2t)
         with torch.no_grad():
@@ -118,7 +124,8 @@ def total_loss(out: Dict, batch: Dict, loss_adapter_weight: float,
                 q_of = assign(cost)
             else:
                 q_of = assignments[j].to(cost.device).long()
-                gap = max(gap, match_gap(cost, q_of, valid))
+                for k, v in match_gap(cost, q_of, valid).items():
+                    gap[k] = max(gap[k], v)
         used.append(q_of)
         for k, v in _losses(cls, o["pred_boxes"], labels, tboxes, valid, q_of,
                             num_boxes).items():

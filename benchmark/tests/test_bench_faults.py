@@ -1,7 +1,9 @@
 """The harness driven end to end on the CPU (its look for a card skipped),
 at the tiny configuration in float32, with the timed path sound and then
 broken underneath: `correct` comes out true, then false for each fault the
-cell can have. One card: no exchange between cards to leave out."""
+cell can have. The data-parallel cell runs on 2 gloo ranks
+(`benchmark/tests/ranks.py`), where the exchange between the ranks can be
+left out."""
 
 import json
 
@@ -16,8 +18,8 @@ MANIFEST = json.loads((bench.ROOT / "BENCHMARK.json").read_text())
 SERVE = {"select_gap": 1e-4, "select_miss": 0.0, "head_gap": 1e-4, "logit_gap": 1e-4,
          "box_gap": 1e-5,
          "post_gap": 0.0, "window_captures": 0.0}
-TRAIN = {"loss_gap": 1e-5, "grad_gap": 1e-4, "update_gap": 1e-4, "select_gap": 1e-4,
-         "match_gap": 1e-6}
+TRAIN = {"loss_gap": 1e-5, "grad_gap": 1e-4, "update_gap": 1e-4, "update_worst": 1e-4,
+         "unmoved": 0.0, "select_gap": 1e-4, "match_gap": 1e-6}
 
 
 def run_cell(cell, monkeypatch, capsys, seconds="1"):
@@ -105,6 +107,7 @@ def test_step_leaves_the_state_unchanged(monkeypatch, capsys):
     monkeypatch.setattr(Optimizer, "step", no_update)
     out = run_cell("zira-t.train-b8", monkeypatch, capsys)
     assert not out["correct"] and out["check"]["update_gap"]["value"] > 0.5
+    assert out["check"]["unmoved"]["value"] > 0
 
 
 def test_half_the_batch_trained(monkeypatch, capsys):
@@ -121,3 +124,26 @@ def test_half_the_batch_trained(monkeypatch, capsys):
     monkeypatch.setattr(step, "compute_losses", half)
     out = run_cell("zira-t.train-b8", monkeypatch, capsys)
     assert not out["correct"] and out["check"]["loss_gap"]["value"] > TRAIN["loss_gap"]
+
+
+def test_ranks_step_on_their_own_gradients(monkeypatch, capsys):
+    """The data-parallel cell with the exchange of gradients left out: each
+    rank's backward runs under DDP's `no_sync`, and the optimizer steps on
+    its own rows' gradient."""
+    import ziragroundingdino_torch.train.step as step
+
+    from benchmark.tests.ranks import ranks_cell, run_ranks
+
+    ranks_cell(monkeypatch)
+    real = step.train_step
+
+    def unaveraged(model, *args, **kwargs):
+        with model.no_sync():
+            return real(model, *args, **kwargs)
+
+    monkeypatch.setattr(step, "train_step", unaveraged)
+    assert run_ranks(2**31 + 21) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert not out["correct"]
+    assert out["check"]["rank_gap"]["value"] > 0
+    assert out["check"]["grad_gap"]["value"] > TRAIN["grad_gap"]

@@ -127,3 +127,57 @@ def test_limits_for_every_cell():
     for w in MANIFEST["workloads"]:
         lim = json.loads((BENCH / "limits" / f"{w['name']}.json").read_text())
         assert lim["limits"] and all(v >= 0 for v in lim["limits"].values())
+
+
+def traffic(name):
+    return json.loads((BENCH / "traffic" / f"{name}.json").read_text())
+
+
+@pytest.mark.parametrize("w", MANIFEST["workloads"], ids=lambda w: w["name"])
+def test_every_cell_has_a_run_kind(w):
+    import importlib
+
+    from benchmark.run import RUNS
+
+    kind = traffic(w["traffic"])["kind"]
+    assert kind in RUNS
+    module, name, family = RUNS[kind]
+    assert hasattr(importlib.import_module(f"benchmark.lib.{module}"), name)
+    assert family in ("serve", "train")
+
+
+def test_four_card_cells():
+    cells = MANIFEST["workloads"]
+    four = [w for w in cells if w["chips"] == 4]
+    assert len(four) <= max(1, len(cells) // 4)
+    for w in cells:
+        mix = traffic(w["traffic"])
+        assert mix.get("ranks", 1) in (1, w["chips"])
+        if mix["kind"] == "train-ddp":
+            assert mix["ranks"] == w["chips"] and mix["batch"] % mix["ranks"] == 0
+
+
+def test_data_parallel_traffic_is_train_b8_split():
+    """The data-parallel cell's batches are the one-card cell's."""
+    one, ddp = traffic("train-b8"), traffic("train-ddp4")
+    differ = {k for k in set(one) | set(ddp) if one.get(k) != ddp.get(k)}
+    assert differ == {"kind", "ranks", "why", "ranks_source"}
+
+
+def test_collective_readers():
+    """The collectives' readers, for a data-parallel cell to name: nothing
+    where no collective ran, else ms a step."""
+    import types
+
+    from benchmark.lib.trace import TraceResult
+    from benchmark.run import reader
+
+    t = TraceResult("train", items=[0, 1])
+    t.kernel_s["gemm"] = 0.5
+    ctx = types.SimpleNamespace(trace=t)
+    for name in ("allreduce_ms.train", "allreduce_exposed_ms.train"):
+        assert reader(name)(ctx) is None
+    t.kernel_s["ncclDevKernel_AllReduce_Sum_f32_RING_LL"] = 0.004
+    t.collective_exposed_s = 0.001
+    assert reader("allreduce_ms.train")(ctx) == pytest.approx(2.0)
+    assert reader("allreduce_exposed_ms.train")(ctx) == pytest.approx(0.5)

@@ -50,4 +50,6 @@ def tiny_mix(name: str) -> dict:
         mix["label_counts"] = {"one": 1, "two": 2, "three": 3}
         mix["boxes_per_label"] = [1, 2]
         mix["max_boxes"] = 12
+        if "ranks" in mix:  # a data mesh of 2 gloo ranks, an image each
+            mix["ranks"] = 2
     return mix
