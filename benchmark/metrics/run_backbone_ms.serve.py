@@ -1,0 +1,12 @@
+"""run_backbone_ms.serve: stream milliseconds a request of the program's
+`predictor.run.backbone` span (Swin, the level projections, masks and
+positions, flattened): a part of the key's replayed graph, timed by events
+captured into it, under each request's `predictor.run` span in the profiled
+slices (`ziragroundingdino_torch/utils/predictor.py::PARTS`). Nothing from a
+program whose graphs hold no such events."""
+
+from benchmark.lib.spans import ms_per_root
+
+
+def read(ctx):
+    return ms_per_root("predictor.run", "predictor.run.backbone", stream=True)

@@ -143,7 +143,9 @@ def _split_softmax(s, val, nl_rows_tiles, heads=1, b=1):
     return sum(wi[:, None] * p[2] for wi, p in zip(w, parts)) / total[:, None], splits
 
 
-@pytest.mark.parametrize("nk,nl", [(1000, 32), (20197, 256), (700, 64), (130, 256)])
+# 89523: the image rows of five levels at 800x1344 (MM-Grounding-DINO-L)
+@pytest.mark.parametrize("nk,nl", [(1000, 32), (20197, 256), (700, 64), (130, 256),
+                                   (89523, 32)])
 def test_split_combine_matches_one_pass_softmax(nk, nl):
     """Uneven splits (the last one short), masked keys at NEG_INF and one
     row whose keys are all masked (it averages them all)."""
@@ -161,7 +163,8 @@ def test_split_combine_matches_one_pass_softmax(nk, nl):
 
 @pytest.mark.parametrize("b,heads,nl,nv", [(2, 4, 256, 20197), (1, 4, 32, 20197),
                                            (1, 4, 64, 21504), (8, 4, 256, 20197),
-                                           (1, 2, 45, 65), (2, 2, 32, 1)])
+                                           (1, 2, 45, 65), (2, 2, 32, 1),
+                                           (1, 4, 32, 89523), (1, 4, 64, 80997)])
 def test_split_plan_covers_every_key_once(b, heads, nl, nv):
     splits, per = split_plan(b, heads, nl, nv)
     assert per % fusion_attn.CHUNK_KEYS == 0 and splits * per >= nv > (splits - 1) * per

@@ -54,6 +54,9 @@ CASES = {
     # the generic (L, P) instantiation at the wide head dims
     "generic_d32": (1, 19, 8, 32, 3, ((9, 7), (4, 5), (2, 3)), "edges"),
     "generic_d16": (2, 7, 2, 16, 2, ((3, 3), (2, 2), (1, 4), (1, 1), (2, 1)), (-0.5, 1.5)),
+    # five levels of 4 points at the main path's heads (MM-Grounding-DINO-L's
+    # encoder and decoder): the generic instantiation at L * P = 20
+    "five_levels": (1, 37, 8, 32, 4, ((20, 34), (10, 17), (5, 9), (3, 5), (2, 3)), "edges"),
     # every sample of level 0 inside one cell, so that the backward's bin of
     # that cell takes 2,400 records per head and splits over chunks
     "hot": (1, 600, 2, 32, 4, ((6, 5), (3, 3)), "hot"),

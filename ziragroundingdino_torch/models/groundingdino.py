@@ -325,6 +325,7 @@ class GroundingDINO(nn.Module):
         }
 
         # ---- image path
+        profiling.mark("backbone")
         with profiling.span("model.backbone"):
             feats = self.backbone[0](pixels, mask, generator)
         srcs, masks_lvl, poss = [], [], []

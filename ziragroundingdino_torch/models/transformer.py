@@ -504,10 +504,12 @@ class Transformer(nn.Module):
         spatial_shapes = tuple(shapes)
         valid_ratios = compute_valid_ratios(masks)
 
+        profiling.mark("encoder")
         memory, memory_text, enc_loss = self.encoder(
             src_flat, pos_flat, spatial_shapes, valid_ratios, mask_flat,
             text_dict["encoded_text"], text_dict["text_token_mask"],
             text_dict["text_self_attention_masks"], text_dict["position_ids"], generator)
+        profiling.mark("decoder")
         text_dict = dict(text_dict, encoded_text=memory_text)
 
         # two-stage query selection (`transformer_for_adapter.py:301-344`)

@@ -19,6 +19,12 @@ another's outputs when it replays, so each request copies its outputs out
 before it returns. On the CPU (the tests) the same code runs the forward
 eagerly over the same buffers. A capture that fails raises; nothing falls
 back to eager on the card.
+
+Each graph holds the boundaries of the forward's `PARTS` as timing events
+(`utils/profiling.py::parts`), which every replay records: while a
+profiler records, a request's `predictor.run` span gets one child a part,
+`predictor.run.<part>`, with the stream time between its events (host time
+on the CPU).
 """
 
 from __future__ import annotations
@@ -46,6 +52,12 @@ from ziragroundingdino_torch.utils import profiling
 logger = logging.getLogger("ziragroundingdino_torch")
 
 WARMUP_RUNS = 2  # eager runs on a side stream before a capture: lazy set-up, Swin's tables
+# the parts of a forward (`profiling.parts`, `mark`) that `predictor.run`'s
+# children `predictor.run.<part>` time: the pixels' normalisation, BERT,
+# feat_map and the language branch; Swin, the level projections, masks and
+# positions, flattened; the feature enhancer; query selection, the decoder,
+# the heads and the post-processing
+PARTS = ("text", "backbone", "encoder", "decoder")
 _TEXT_KEYS = ("input_ids", "text_token_mask", "position_ids", "text_self_attention_masks")
 
 
@@ -61,6 +73,7 @@ class _Program:
     graph: Optional["torch.cuda.CUDAGraph"] = None
     outputs: Tuple[torch.Tensor, ...] = ()
     results: Tuple[torch.Tensor, ...] = ()
+    parts: Optional[profiling.Parts] = None  # the graph's part boundaries
 
 
 class Predictor:
@@ -135,7 +148,8 @@ class Predictor:
         torch.cuda.current_stream(self.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self._pool):
-            prog.outputs = self._run(prog)
+            with profiling.parts(PARTS[0], self.device) as prog.parts:
+                prog.outputs = self._run(prog)
         prog.graph = graph
         prog.results = tuple(torch.empty(o.shape, dtype=o.dtype).pin_memory()
                              for o in prog.outputs)
@@ -225,7 +239,10 @@ class Predictor:
                     for k, v in host.items():
                         prog.inputs[k].copy_(torch.from_numpy(np.ascontiguousarray(v)))
                 with profiling.span("predictor.run"):
-                    scores, labels, boxes = (t.numpy() for t in self._run(prog))
+                    with profiling.parts(PARTS[0], self.device) as parts:
+                        out = self._run(prog)
+                    parts.record("predictor.run")
+                    scores, labels, boxes = (t.numpy() for t in out)
             else:
                 with profiling.span("predictor.stage", stream=False):
                     for k, v in host.items():
@@ -236,6 +253,7 @@ class Predictor:
                     for host_out, out in zip(prog.results, prog.outputs):
                         host_out.copy_(out, non_blocking=True)
                     torch.cuda.current_stream(self.device).synchronize()
+                    prog.parts.record("predictor.run")
                     scores, labels, boxes = (t.numpy() for t in prog.results)
 
         with profiling.span("predictor.results", stream=False):

@@ -8,6 +8,9 @@
   * `span` / `spans` / `clear_spans`: named spans inside the program (the
     Predictor's host path, the train step's phases, the model's layers),
     recorded while a `torch.profiler` records and read back afterwards;
+  * `parts` / `mark`: the boundaries of a forward's parts (text, backbone,
+    encoder, decoder), kept as timing events inside a captured CUDA graph,
+    so that a replay's parts become spans with stream times;
   * `nan_guard` / `checkify_nans`: raise, or return an error object, when a
     module of a model produces a value that is not finite.
 
@@ -130,6 +133,13 @@ class _SpanStore:
         self.seqs = itertools.count(1)
         self.ids = itertools.count(1)
 
+    def child(self, name: str, **fields) -> SpanRecord:
+        """A new record named `name` under the innermost open span (a root
+        where none is open). Call it holding `lock`."""
+        parent = self.open[-1] if self.open else None
+        return SpanRecord(name, next(self.seqs), parent.seq if parent else None,
+                          parent.id if parent else next(self.ids), **fields)
+
 
 _STORE = _SpanStore()
 
@@ -163,9 +173,7 @@ class _Span:
         self.range.__enter__()
         store = _STORE
         with store.lock:
-            parent = store.open[-1] if store.open else None
-            rec = SpanRecord(self.name, next(store.seqs), parent.seq if parent else None,
-                             parent.id if parent else next(store.ids), 0, counts=self.counts)
+            rec = store.child(self.name, start_ns=0, counts=self.counts)
             store.open.append(rec)
         self.rec = rec
         if (self.stream and torch.cuda.is_initialized()
@@ -233,6 +241,75 @@ def clear_spans() -> None:
     """Forget the finished spans."""
     with _STORE.lock:
         _STORE.done.clear()
+
+
+class Parts:
+    """The boundaries of a forward's parts, in order: (name, stamp) where
+    each part starts, then (None, stamp) where the last ends. A stamp is a
+    timing event recorded on the current stream on a card (external, so a
+    graph being captured keeps it as a node and records it again on every
+    replay), the host's `perf_counter_ns` on the CPU."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.marks: List[tuple] = []
+
+    def add(self, name: Optional[str]) -> None:
+        if self.cuda:
+            stamp = torch.cuda.Event(enable_timing=True, external=True)
+            stamp.record()
+        else:
+            stamp = time.perf_counter_ns()
+        self.marks.append((name, stamp))
+
+    def record(self, prefix: str) -> None:
+        """While a `torch.profiler` records, one finished span a part, named
+        `<prefix>.<part>`, as a child of the innermost open span: on a card
+        with the stream time between its two events (call it once the
+        stream has passed the last; host times are then the call's), on the
+        CPU with the host times between its two stamps."""
+        if not _autograd_profiler._is_profiler_enabled:
+            return
+        now = time.perf_counter_ns()
+        timed = []
+        for (name, a), (_, b) in zip(self.marks, self.marks[1:]):
+            if self.cuda:
+                timed.append((name, now, now, a.elapsed_time(b)))
+            else:
+                timed.append((name, a, b, None))
+        store = _STORE
+        with store.lock:
+            for name, start, end, ms in timed:
+                store.done.append(store.child(f"{prefix}.{name}", start_ns=start, end_ns=end,
+                                              device_ms=ms))
+
+
+_PARTS: Optional[Parts] = None  # the innermost open `parts` block's
+
+
+@contextlib.contextmanager
+def parts(first: str, device: torch.device):
+    """Collect the boundaries of the block's parts: the first, `first`,
+    starts at the block's start, each `mark(name)` inside starts the next,
+    and the last ends with the block. Yields the `Parts`, whose `record`
+    turns them into spans. Opened around a capture, the boundaries are
+    nodes of the graph: each replay records them, at no host cost."""
+    global _PARTS
+    found = Parts(device)
+    found.add(first)
+    outer, _PARTS = _PARTS, found
+    try:
+        yield found
+    finally:
+        _PARTS = outer
+    found.add(None)
+
+
+def mark(name: str) -> None:
+    """Part `name` of a forward starts here, inside a `parts` block; else
+    nothing (one read)."""
+    if _PARTS is not None:
+        _PARTS.add(name)
 
 
 class NonFiniteError(FloatingPointError):
